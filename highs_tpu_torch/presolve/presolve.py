@@ -1,0 +1,68 @@
+"""LP presolve.
+
+Re-implements the high-value rules of the reference presolve
+(highs/presolve/HPresolve.cpp rule loop :5780) as vectorized numpy
+passes with a stack-replay postsolve
+(highs/presolve/HighsPostsolveStack.h).  This first version implements
+the trivial-detection subset (empty rows/cols, inconsistent bounds);
+the full vectorized rule loop lives in `rules.py` and is applied when
+`presolve != off`.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional
+
+import numpy as np
+
+from ..constants import HighsModelStatus, kHighsInf
+from ..models.lp import HighsLp
+from ..models.solution import HighsSolution
+from ..options import HighsOptions
+
+
+@dataclasses.dataclass
+class PresolveResult:
+    status: HighsModelStatus
+    reduced_lp: HighsLp
+    # postsolve metadata (filled by rules.py when reductions happen)
+    stack: List = dataclasses.field(default_factory=list)
+    reduced: bool = False
+    keep_rows: Optional[object] = None  # np.ndarray of kept row indices
+    keep_cols: Optional[object] = None
+    orig_num_row: int = 0
+    orig_num_col: int = 0
+
+
+def presolve_lp(lp: HighsLp, options: HighsOptions) -> PresolveResult:
+    tol = options.primal_feasibility_tolerance
+    # inconsistent bounds
+    if np.any(lp.col_lower > lp.col_upper + tol) or (
+            lp.num_row and np.any(lp.row_lower > lp.row_upper + tol)):
+        return PresolveResult(HighsModelStatus.kInfeasible, lp)
+
+    if lp.num_row:
+        a = lp.a_matrix.to_scipy().tocsr()
+        row_nnz = np.diff(a.indptr)
+        empty_rows = row_nnz == 0
+        if np.any(empty_rows):
+            bad = empty_rows & ((lp.row_lower > tol) | (lp.row_upper < -tol))
+            if np.any(bad):
+                return PresolveResult(HighsModelStatus.kInfeasible, lp)
+
+    if options.presolve == "off":
+        return PresolveResult(HighsModelStatus.kNotset, lp)
+
+    from .rules import run_presolve_rules
+    return run_presolve_rules(lp, options)
+
+
+def postsolve_lp(original_lp: HighsLp, presolve_result: PresolveResult,
+                 solution: HighsSolution, basis=None):
+    """Replay the reduction stack to recover a solution (and an alien
+    basis, when a reduced basis is given) for the original LP."""
+    if not presolve_result.reduced:
+        return solution, basis
+    from .rules import postsolve_rules
+    return postsolve_rules(original_lp, presolve_result, solution,
+                           reduced_basis=basis)
