@@ -3,7 +3,8 @@
 State computed elsewhere (for example by the JAX package, whose arrays
 `np.asarray` turns into numpy) comes in as dictionaries of numpy arrays
 and scalars, so that both packages can compute from the same operator
-and the same iterate.
+and the same iterate.  Every function here puts its tensors on the
+device it is given, CUDA by default (`device.resolve_device`).
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ import numpy as np
 import torch
 
 from .constants import MatrixFormat, ObjSense
+from .device import resolve_device
 from .models.lp import HighsLp, HighsSparseMatrix
 from .ops.block_csr import BLOCK, BlockCsr
 from .ops.linops import DenseMatrix, EllMatrix
@@ -45,10 +47,11 @@ def lp_from_numpy(d: Mapping) -> HighsLp:
 
 
 def block_csr_from_numpy(blocks, block_row, block_col, first_in_row,
-                         shape: Tuple[int, int], device="cpu") -> BlockCsr:
+                         shape: Tuple[int, int], device=None) -> BlockCsr:
     """One block-CSR direction from its layout arrays (tiles stored
     transposed and sorted by block-row, as `block_csr_layout` makes
     them); the row pointer is derived from the sorted `block_row`."""
+    device = resolve_device(device)
     block_row = np.asarray(block_row, dtype=np.int32)
     mb = int(shape[0]) // BLOCK
     if np.any(np.diff(block_row) < 0):
@@ -69,9 +72,10 @@ def block_csr_from_numpy(blocks, block_row, block_col, first_in_row,
         shape=(int(shape[0]), int(shape[1])))
 
 
-def linop_from_numpy(d: Mapping, device="cpu"):
+def linop_from_numpy(d: Mapping, device=None):
     """A dense (`{"a": ...}`) or ELL operator (the ten EllMatrix field
     names) from numpy arrays."""
+    device = resolve_device(device)
     if "a" in d:
         return DenseMatrix(torch.as_tensor(np.array(d["a"]),
                                            device=device))
@@ -83,10 +87,11 @@ def linop_from_numpy(d: Mapping, device="cpu"):
     return EllMatrix(**fields)
 
 
-def pdhg_problem_from_numpy(d: Mapping, device="cpu") -> PdhgProblem:
+def pdhg_problem_from_numpy(d: Mapping, device=None) -> PdhgProblem:
     """PdhgProblem from numpy arrays named as its fields; `d["k_op"]` is
     an operator of this package (from `linop_from_numpy`, `from_scipy`,
     or a BlockCsrMatrix of `block_csr_from_numpy` halves)."""
+    device = resolve_device(device)
     def dev(a):
         return torch.as_tensor(np.array(a), device=device)
     y_lo = d.get("y_lo")
@@ -97,16 +102,18 @@ def pdhg_problem_from_numpy(d: Mapping, device="cpu") -> PdhgProblem:
         y_lo=None if y_lo is None else dev(y_lo))
 
 
-def pdhg_state_from_numpy(d: Mapping, device="cpu") -> PdhgState:
+def pdhg_state_from_numpy(d: Mapping, device=None) -> PdhgState:
     """PdhgState from numpy arrays named as its fields (`k` int32)."""
+    device = resolve_device(device)
     fields = {name: torch.as_tensor(np.array(d[name]), device=device)
               for name in PdhgState._fields}
     fields["k"] = fields["k"].to(torch.int32)
     return PdhgState(**fields)
 
 
-def restart_ctl_from_numpy(d: Mapping, device="cpu") -> RestartCtl:
+def restart_ctl_from_numpy(d: Mapping, device=None) -> RestartCtl:
     """RestartCtl from numpy scalars named as its fields."""
+    device = resolve_device(device)
     fields = {name: torch.as_tensor(np.array(d[name]), device=device)
               for name in RestartCtl._fields}
     fields["fresh"] = fields["fresh"].to(torch.bool)

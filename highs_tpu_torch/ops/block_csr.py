@@ -22,6 +22,8 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from ..device import resolve_device
+
 BLOCK = 128
 
 # launches of the CUDA kernel in this process (each wrapper call that
@@ -190,9 +192,10 @@ class BlockCsrMatrix(NamedTuple):
 
 
 def from_scipy_block_csr(mat: sp.spmatrix, dtype=torch.float32,
-                         device="cpu") -> BlockCsrMatrix:
+                         device=None) -> BlockCsrMatrix:
+    """Both directions of `mat` on `device` (default CUDA)."""
     m, n = mat.shape
-    device = torch.device(device)
+    device = resolve_device(device)
     # pad both dims to whole tiles with consistent K / K' shapes
     mp = ((m + BLOCK - 1) // BLOCK) * BLOCK
     np_ = ((n + BLOCK - 1) // BLOCK) * BLOCK

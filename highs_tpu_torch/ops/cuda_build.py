@@ -1,10 +1,11 @@
-"""Build a CUDA source of `highs_tpu_torch/csrc/` into a shared library.
+"""Build the CUDA sources of `highs_tpu_torch/csrc/` into shared libraries.
 
 Each source exports a plain C interface and is compiled by `nvcc` for
 Hopper (`sm_90a`) at its first use, into `highs_tpu_torch/_build/`, and
 loaded with ctypes.  The library's file name carries a hash of the
 source, so an edited source is rebuilt and a stale build is never
 loaded.  A failed build raises: no caller falls back to another path.
+`build` compiles several sources at once, one nvcc process each.
 """
 from __future__ import annotations
 
@@ -23,7 +24,8 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-# name -> (seconds spent building in this process, nvcc's output)
+# name -> (seconds from the start of its nvcc to its end as seen by this
+# process, nvcc's output)
 BUILD_INFO: dict = {}
 
 
@@ -40,23 +42,40 @@ def _nvcc() -> str:
     return found
 
 
-def load_library(name: str) -> ctypes.CDLL:
-    """Compile `csrc/<name>.cu` if its build is missing, then load it."""
+def _paths(name: str):
     src = CSRC_DIR / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
-    lib_path = BUILD_DIR / f"lib{name}-{digest}.so"
-    if not lib_path.exists():
+    return src, BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build(names) -> None:
+    """Compile `csrc/<name>.cu` for every name whose build is missing,
+    all nvcc processes started together; raises if any of them fails."""
+    started = []
+    for name in names:
+        src, lib_path = _paths(name)
+        if lib_path.exists():
+            continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-        t0 = time.perf_counter()
-        proc = subprocess.run(
+        proc = subprocess.Popen(
             [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-            capture_output=True, text=True)
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        started.append((name, src, lib_path, tmp, time.perf_counter(), proc))
+    failures = []
+    for name, src, lib_path, tmp, t0, proc in started:
+        out, err = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed to build {src} (exit {proc.returncode}):\n"
-                f"{proc.stdout}{proc.stderr}")
+            failures.append(f"nvcc failed to build {src} (exit "
+                            f"{proc.returncode}):\n{out}{err}")
+            continue
         os.replace(tmp, lib_path)
-        BUILD_INFO[name] = (time.perf_counter() - t0,
-                            proc.stdout + proc.stderr)
-    return ctypes.CDLL(str(lib_path))
+        BUILD_INFO[name] = (time.perf_counter() - t0, out + err)
+    if failures:
+        raise RuntimeError("\n".join(failures))
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """Compile `csrc/<name>.cu` if its build is missing, then load it."""
+    build([name])
+    return ctypes.CDLL(str(_paths(name)[1]))

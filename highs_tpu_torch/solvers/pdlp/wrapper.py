@@ -98,8 +98,6 @@ def solve_lp_pdlp(lp: HighsLp, options: HighsOptions,
         raise NotImplementedError(
             "tpu_mesh_shape (multi-device PDLP) is not yet ported: "
             "ROADMAP queue 1 item 9")
-    if options.tpu_matrix_format in linops.NOT_YET_PORTED:
-        raise linops.not_yet_ported(options.tpu_matrix_format)
 
     info = PdlpRunInfo()
     if lp.num_row == 0:
@@ -157,6 +155,26 @@ def solve_lp_pdlp(lp: HighsLp, options: HighsOptions,
                                             scaled_a.indptr[-1],
                                             dtype=scaled_a.indptr.dtype)])),
                                shape=(m_pad, n_pad))
+    # bucket-permuted ELL (fmt "bucketperm"): bake the bucket row and
+    # column orders into the PROBLEM (rows of K sorted by nonzero-count
+    # bucket, columns by transpose bucket), so the bucket-ladder products
+    # need no un-permute gather.  Everything downstream (problem
+    # vectors, warm start, refinement oracle) lives in the permuted
+    # space; the inverse applies once at recovery.
+    perm_maps = None
+    if options.tpu_matrix_format == "bucketperm":
+        row_perm = linops.bucket_row_perm(scaled_pad)
+        col_perm = linops.bucket_row_perm(scaled_pad.T.tocsr())
+        scaled_pad = scaled_pad[row_perm][:, col_perm].tocsr()
+        padr_nat, padc_nat = padr, padc
+
+        def padr(v, fill):  # noqa: F811
+            return padr_nat(v, fill)[row_perm]
+
+        def padc(v, fill):  # noqa: F811
+            return padc_nat(v, fill)[col_perm]
+
+        perm_maps = (np.argsort(row_perm), np.argsort(col_perm))
     k_op = linops.from_scipy(scaled_pad, fmt=options.tpu_matrix_format,
                              dtype=dtype, device=device)
 
@@ -394,6 +412,9 @@ def solve_lp_pdlp(lp: HighsLp, options: HighsOptions,
     info.solve_time = time.perf_counter() - t_all
     info.restarts = total_restarts
 
+    if perm_maps is not None:
+        inv_row, inv_col = perm_maps
+        x_uns, y_uns, z_uns = x_uns[inv_col], y_uns[inv_row], z_uns[inv_col]
     col_value, row_dual, col_dual = recover_solution(
         std, x_uns[:n_std], y_uns[:m_std], z_uns[:n_std])
     row_value = (lp.a_matrix.to_scipy() @ col_value if lp.num_row

@@ -1,11 +1,16 @@
-"""Where the time of a block64k solve goes on one CUDA card.
+"""Where the time of a block64k or synth50k solve goes on one CUDA card.
 
     python3 -m highs_tpu_torch.tools.profile_block64k [--dtype float32]
         [--nblocks 512] [--out profile_block64k.json]
+    python3 -m highs_tpu_torch.tools.profile_block64k --lp synth50k
+        --format onehot [--out profile_synth50k.json]
 
 Solves the block64k LP (`utils/gen_block_lp.py`) through `Highs().run()`
-with the default options (`--dtype` sets `tpu_dtype`; the default,
-"choose", is float32 with f64 refinement on CUDA), and splits the run's
+with the default options, or the synth50k LP (`utils/gen_synth_lp.py`)
+with solver "hipdlp" (`choose` sends an LP of its size to the IPM, not
+ported yet) in the matrix format `--format` (`--dtype` sets `tpu_dtype`;
+the default, "choose", is float32 with f64 refinement on CUDA), and
+splits the run's
 host-clock time into presolve, the PDLP wrapper's host setup (standard
 form, scaling, operator build), each PDHG round (the refinement's host
 KKT oracle runs inside its round), recovery, and the rest of the
@@ -21,7 +26,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import subprocess
 import sys
 import time
 
@@ -29,21 +33,14 @@ import numpy as np
 import torch
 
 from .. import Highs, HighsModelStatus
-from ..ops import block_csr
+from ..ops import block_csr, onehot_spmv
 from ..solvers.pdlp import pdhg, wrapper
 from ..utils.gen_block_lp import NBLOCKS, block_lp
+from ..utils.gen_synth_lp import synth_lp
+from .card import card_line
 
 WINDOWS = 10
 INTERVAL = 40
-
-
-def _card() -> str:
-    """The card's name and power limit, as nvidia-smi reports them."""
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
 
 
 def _timed(module, name, sink):
@@ -125,7 +122,12 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--dtype", default="choose",
                     choices=["choose", "float32", "float64"])
-    ap.add_argument("--nblocks", type=int, default=NBLOCKS)
+    ap.add_argument("--lp", default="block64k",
+                    choices=["block64k", "synth50k"])
+    ap.add_argument("--format", default="choose",
+                    help="tpu_matrix_format")
+    ap.add_argument("--nblocks", type=int, default=NBLOCKS,
+                    help="block-rows of block64k")
     ap.add_argument("--out", default="profile_block64k.json")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -134,7 +136,8 @@ def main(argv=None) -> int:
     device = torch.device("cuda")
 
     t0 = time.perf_counter()
-    lp = block_lp(nblocks=args.nblocks)
+    lp = (block_lp(nblocks=args.nblocks) if args.lp == "block64k"
+          else synth_lp())
     gen_s = time.perf_counter() - t0
 
     steps = {name: [] for name in ("preprocess_lp", "scale_problem",
@@ -147,12 +150,19 @@ def main(argv=None) -> int:
     h = Highs(device=device)
     h.setOptionValue("output_flag", False)
     h.setOptionValue("tpu_dtype", args.dtype)
+    h.setOptionValue("tpu_matrix_format", args.format)
+    if args.lp == "synth50k":
+        h.setOptionValue("solver", "hipdlp")
     h.passModel(lp)
     block_csr.LAUNCHES = 0
+    for key in onehot_spmv.LAUNCHES:
+        onehot_spmv.LAUNCHES[key] = 0
     t0 = time.perf_counter()
     h.run()
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
+    launches = {"block_csr_spmv": block_csr.LAUNCHES,
+                **onehot_spmv.LAUNCHES}
     rd = h.getRunData()
     rounds = [{"seconds": s, "iterations": out.iterations,
                "restarts": out.restarts, "status": out.status.name}
@@ -167,12 +177,13 @@ def main(argv=None) -> int:
     dtype = problem.c.dtype
 
     report = {
-        "card": _card(),
-        "nblocks": args.nblocks, "tpu_dtype": args.dtype,
+        "card": card_line(), "lp": args.lp, "format": args.format,
+        "nblocks": args.nblocks if args.lp == "block64k" else None,
+        "tpu_dtype": args.dtype,
         "device_dtype": str(dtype).replace("torch.", ""),
         "status": HighsModelStatus(h.getModelStatus()).name,
         "objective": h.getObjectiveValue(),
-        "iterations": iters, "kernel_launches": block_csr.LAUNCHES,
+        "iterations": iters, "kernel_launches": launches,
         "generate_s": gen_s, "run_s": run_s,
         "presolve_s": rd.presolve_time, "solve_s": rd.solve_time,
         "postsolve_s": rd.postsolve_time,

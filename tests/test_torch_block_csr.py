@@ -106,7 +106,7 @@ def test_convert_carries_the_jax_operator(jax_block_csr):
     fwd = block_csr_from_numpy(
         *(np.asarray(getattr(jop.fwd, f)) for f in
           ("blocks", "block_row", "block_col", "first_in_row")),
-        shape=jop.fwd.shape)
+        shape=jop.fwd.shape, device="cpu")
     x = np.random.default_rng(3).standard_normal(jop.shape[1])
     np.testing.assert_allclose(
         tbc.block_csr_spmv(fwd, torch.from_numpy(x)).numpy(),
@@ -114,7 +114,8 @@ def test_convert_carries_the_jax_operator(jax_block_csr):
 
 
 def test_wrapper_checks_its_inputs():
-    top = tbc.from_scipy_block_csr(CASES[1][1], dtype=torch.float64)
+    top = tbc.from_scipy_block_csr(CASES[1][1], dtype=torch.float64,
+                                   device="cpu")
     n = top.shape[1]
     with pytest.raises(ValueError):
         top.mv(torch.zeros(n + 1, dtype=torch.float64))

@@ -7,13 +7,17 @@ import pathlib
 import subprocess
 import sys
 
+import numpy as np
 import pytest
+import scipy.sparse as sp
 import torch
 
 import highs_tpu.options as jax_options
 import highs_tpu_torch
 import highs_tpu_torch.options as torch_options
+from highs_tpu_torch import convert
 from highs_tpu_torch.device import resolve_device
+from highs_tpu_torch.ops import block_csr, linops, onehot_spmv
 
 # the tests run in parallel worker processes on shared cores: torch's
 # own thread pool in each of them would oversubscribe the machine
@@ -32,6 +36,8 @@ def test_import_leaves_jax_and_highs_tpu_out():
         "import highs_tpu_torch.solvers.pdlp.wrapper\n"
         "import highs_tpu_torch.convert\n"
         "import highs_tpu_torch.utils.gen_block_lp\n"
+        "import highs_tpu_torch.utils.gen_synth_lp\n"
+        "import highs_tpu_torch.tools.gather_probe\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'highs_tpu' or m.startswith('highs_tpu.')]\n"
         "print(','.join(bad))\n")
@@ -89,3 +95,47 @@ def test_cuda_requested_without_card_raises(monkeypatch):
         highs_tpu_torch.Highs()
     assert resolve_device("cpu") == torch.device("cpu")
     assert highs_tpu_torch.Highs(device="cpu").device == torch.device("cpu")
+
+
+_A = sp.random(256, 256, density=0.02, random_state=0, format="csr")
+
+# every public constructor of device objects, called without a device
+CONSTRUCTORS = {
+    "linops.from_scipy": lambda: linops.from_scipy(_A),
+    "linops.from_scipy_ell": lambda: linops.from_scipy_ell(_A),
+    "linops.from_scipy_panel_ell": lambda: linops.from_scipy_panel_ell(_A),
+    "linops.from_scipy_bucket_panel_ell":
+        lambda: linops.from_scipy_bucket_panel_ell(_A),
+    "linops.from_scipy_bucket_perm": lambda: linops.from_scipy_bucket_perm(
+        _A[linops.bucket_row_perm(_A)][:, linops.bucket_row_perm(
+            _A.T.tocsr())]),
+    "linops.from_scipy_bcoo": lambda: linops.from_scipy_bcoo(_A),
+    "block_csr.from_scipy_block_csr":
+        lambda: block_csr.from_scipy_block_csr(_A),
+    "onehot_spmv.from_scipy_onehot":
+        lambda: onehot_spmv.from_scipy_onehot(_A),
+    "convert.block_csr_from_numpy": lambda: convert.block_csr_from_numpy(
+        np.zeros((1, 128, 128)), [0], [0], [1], shape=(128, 128)),
+    "convert.linop_from_numpy":
+        lambda: convert.linop_from_numpy({"a": np.eye(2)}),
+    "convert.pdhg_problem_from_numpy": lambda: convert.pdhg_problem_from_numpy(
+        {"k_op": None, **{f: np.zeros(2) for f in
+                          ("b", "c", "lo", "up", "is_eq", "lo_fin", "up_fin",
+                           "inv_row_scale", "inv_col_scale", "norm_b",
+                           "norm_c")}}),
+    "convert.pdhg_state_from_numpy": lambda: convert.pdhg_state_from_numpy(
+        {f: np.zeros(2) for f in ("x", "y", "x_pd", "y_pd", "x_anchor",
+                                  "y_anchor", "aty", "k", "eta", "omega")}),
+    "convert.restart_ctl_from_numpy": lambda: convert.restart_ctl_from_numpy(
+        {f: np.zeros(()) for f in ("fpe_init", "fpe_last", "fresh",
+                                   "total_k", "n_restarts")}),
+}
+
+
+@pytest.mark.parametrize("name", sorted(CONSTRUCTORS))
+def test_constructors_default_to_cuda(monkeypatch, name):
+    # without a device a constructor asks for CUDA: with no card it raises,
+    # it never builds on the CPU unasked
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        CONSTRUCTORS[name]()

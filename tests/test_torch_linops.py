@@ -1,5 +1,8 @@
-"""Dense and ELL operators and the `choose` rule: the port against the
-JAX package (f64, atol 1e-12)."""
+"""The operators of every format and the `choose` rule: the port against
+the JAX package (f64, atol 1e-12; layouts exactly).
+
+The one-hot operator has its own file (test_torch_onehot.py); here it
+joins the checks that span every format (`cast_linop`, `linop_dtype`)."""
 import numpy as np
 import pytest
 import scipy.sparse as sp
@@ -58,14 +61,14 @@ def test_products_equal_jax(name, fmt):
 def test_ell_layout_equals_jax():
     a = _case("ell-spill")
     jop = jlin.from_scipy_ell(a, dtype=jnp.float64)
-    top = tlin.from_scipy_ell(a, dtype=torch.float64)
+    top = tlin.from_scipy_ell(a, dtype=torch.float64, device="cpu")
     for field in tlin.EllMatrix._fields:
         np.testing.assert_array_equal(getattr(top, field).numpy(),
                                       np.asarray(getattr(jop, field)),
                                       err_msg=field)
     # the JAX operator's arrays carry over through convert.py
     moved = linop_from_numpy({f: np.asarray(getattr(jop, f))
-                              for f in tlin.EllMatrix._fields})
+                              for f in tlin.EllMatrix._fields}, device="cpu")
     x = np.random.default_rng(2).standard_normal(a.shape[1])
     np.testing.assert_allclose(moved.mv(torch.from_numpy(x)).numpy(),
                                np.asarray(jop.mv(jnp.asarray(x))),
@@ -115,7 +118,8 @@ def _torch_format(op):
 def test_choose_picks_the_jax_format(name, make, want):
     a = make()
     jop = jlin.from_scipy(a, fmt="choose", dtype=jnp.float64)
-    top = tlin.from_scipy(a, fmt="choose", dtype=torch.float64)
+    top = tlin.from_scipy(a, fmt="choose", dtype=torch.float64,
+                          device="cpu")
     assert _jax_format(jop) == want
     assert _torch_format(top) == want
     assert tlin.choose_format(a, torch.float64) == want
@@ -131,27 +135,129 @@ def test_choose_dense_limit_in_bytes():
     assert tlin.choose_format(above, torch.float32) == "dense"
 
 
-@pytest.mark.parametrize("fmt", sorted(tlin.NOT_YET_PORTED))
-def test_format_not_yet_ported_raises(fmt):
-    a = _case("dense")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tlin.from_scipy(a, fmt=fmt, dtype=torch.float64)
-
-
 def test_unknown_format_raises():
     with pytest.raises(ValueError):
-        tlin.from_scipy(_case("dense"), fmt="nope", dtype=torch.float64)
+        tlin.from_scipy(_case("dense"), fmt="nope", dtype=torch.float64,
+                        device="cpu")
 
 
-@pytest.mark.parametrize("fmt", ["dense", "ell", "blockcsr"])
+def _aligned():
+    """A 128-aligned matrix (the panel formats need one, as the PDLP
+    wrapper's padding gives them) with rows and columns longer than the
+    panel width and the top bucket width, so that both spill."""
+    return _scattered(256, 384, 0.03, 6, long_rows=3)
+
+
+def _bucket_permuted(a):
+    rp = tlin.bucket_row_perm(a.tocsr())
+    cp = tlin.bucket_row_perm(a.T.tocsr())
+    return a.tocsr()[rp][:, cp].tocsr()
+
+
+def _jax_op(a, fmt):
+    if fmt == "bucketperm":
+        return jlin.from_scipy_bucket_perm(a, dtype=jnp.float64)
+    return jlin.from_scipy(a, fmt=fmt, dtype=jnp.float64)
+
+
+NEW_FORMATS = ["panelell", "bucketell", "bcoo", "bucketperm"]
+
+
+@pytest.mark.parametrize("fmt", NEW_FORMATS)
+def test_new_format_products_equal_jax(fmt):
+    a = _aligned()
+    if fmt == "bucketperm":
+        a = _bucket_permuted(a)
+    jop = _jax_op(a, fmt)
+    top = tlin.from_scipy(a, fmt=fmt, dtype=torch.float64, device="cpu")
+    assert tuple(top.shape) == tuple(jop.shape) == a.shape
+    rng = np.random.default_rng(9)
+    x = rng.standard_normal(a.shape[1])
+    y = rng.standard_normal(a.shape[0])
+    np.testing.assert_allclose(top.mv(torch.from_numpy(x)).numpy(),
+                               np.asarray(jop.mv(jnp.asarray(x))),
+                               rtol=0, atol=1e-12)
+    np.testing.assert_allclose(top.rmv(torch.from_numpy(y)).numpy(),
+                               np.asarray(jop.rmv(jnp.asarray(y))),
+                               rtol=0, atol=1e-12)
+    np.testing.assert_allclose(top.mv(torch.from_numpy(x)).numpy(), a @ x,
+                               rtol=0, atol=1e-12)
+
+
+def test_panel_layout_equals_jax():
+    a = _aligned()
+    jop = jlin.from_scipy_panel_ell(a, dtype=jnp.float64)
+    top = tlin.from_scipy_panel_ell(a, dtype=torch.float64, device="cpu")
+    assert top.tail_seg.shape[0] > 0 and top.tail_seg_t.shape[0] > 0
+    for field in tlin.PanelEllMatrix._fields:
+        np.testing.assert_array_equal(getattr(top, field).numpy(),
+                                      np.asarray(getattr(jop, field)),
+                                      err_msg=field)
+
+
+def _assert_buckets_equal(tbuckets, jbuckets):
+    assert len(tbuckets) == len(jbuckets)
+    for tb, jb in zip(tbuckets, jbuckets):
+        for t, j, name in zip(tb, jb, ("panel", "lane", "val")):
+            np.testing.assert_array_equal(t.numpy(), np.asarray(j),
+                                          err_msg=name)
+
+
+def test_bucket_layout_equals_jax():
+    a = _aligned()
+    jop = jlin.from_scipy_bucket_panel_ell(a, dtype=jnp.float64)
+    top = tlin.from_scipy_bucket_panel_ell(a, dtype=torch.float64,
+                                           device="cpu")
+    _assert_buckets_equal(top.fwd, jop.fwd)
+    _assert_buckets_equal(top.fwd_t, jop.fwd_t)
+    assert top.tail_seg.shape[0] > 0 and top.tail_seg_t.shape[0] > 0
+    for field in ("inv", "inv_t", "tail_seg", "tail_col", "tail_val",
+                  "tail_seg_t", "tail_col_t", "tail_val_t"):
+        np.testing.assert_array_equal(getattr(top, field).numpy(),
+                                      np.asarray(getattr(jop, field)),
+                                      err_msg=field)
+    ap = _bucket_permuted(a)
+    jperm = jlin.from_scipy_bucket_perm(ap, dtype=jnp.float64)
+    tperm = tlin.from_scipy_bucket_perm(ap, dtype=torch.float64,
+                                        device="cpu")
+    _assert_buckets_equal(tperm.fwd, jperm.fwd)
+    _assert_buckets_equal(tperm.fwd_t, jperm.fwd_t)
+    for t, j in zip(tperm.tails, jperm.tails):
+        np.testing.assert_array_equal(t.numpy(), np.asarray(j))
+
+
+def test_bucket_row_perm_equals_jax():
+    a = _aligned()
+    for csr in (a.tocsr(), a.T.tocsr(), _case("ell-spill")):
+        np.testing.assert_array_equal(tlin.bucket_row_perm(csr),
+                                      jlin.bucket_row_perm(csr))
+    # a matrix not in bucket order is refused, as by the JAX package
+    with pytest.raises(ValueError, match="bucket order"):
+        tlin.from_scipy_bucket_perm(a, dtype=torch.float64, device="cpu")
+    with pytest.raises(ValueError):
+        jlin.from_scipy_bucket_perm(a, dtype=jnp.float64)
+
+
+ALL_FORMATS = ["dense", "ell", "blockcsr", "panelell", "bucketell",
+               "bucketperm", "bcoo", "onehot"]
+
+
+@pytest.mark.parametrize("fmt", ALL_FORMATS)
 def test_cast_linop_matches_jax(fmt):
-    a = _case("dense")
-    top = tlin.from_scipy(a, fmt=fmt, dtype=torch.float64)
-    jop = jlin.from_scipy(a, fmt=fmt, dtype=jnp.float64)
+    a = _aligned()
+    if fmt == "bucketperm":
+        a = _bucket_permuted(a)
+    top = tlin.from_scipy(a, fmt=fmt, dtype=torch.float64, device="cpu")
+    jop = _jax_op(a, fmt)
     low = tlin.cast_linop(top, torch.bfloat16)
     jlow = jlin.cast_linop(jop, jnp.bfloat16)
-    # block-CSR has no low-precision copy in either package
-    assert (low is None) == (jlow is None) == (fmt == "blockcsr")
+    # only dense, ELL and panel ELL have a low-precision copy, in both
+    assert (low is None) == (jlow is None) == \
+        (fmt not in ("dense", "ell", "panelell"))
+    # every f64 operator reports f64 (the JAX package answers f32 for
+    # block-CSR, bucket ELL, bucket-perm and one-hot: ROADMAP queue 3)
     assert tlin.linop_dtype(top) == torch.float64
     if low is not None:
         assert tlin.linop_dtype(low) == torch.bfloat16
+        x = torch.ones(a.shape[1], dtype=torch.bfloat16)
+        assert low.mv(x).dtype == torch.bfloat16

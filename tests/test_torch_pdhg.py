@@ -45,14 +45,14 @@ def _close(got, want, what=""):
 def _torch_op(k, fmt):
     jop = jlin.from_scipy(k, fmt=fmt, dtype=jnp.float64)
     if fmt == "dense":
-        return linop_from_numpy({"a": np.asarray(jop.a)})
+        return linop_from_numpy({"a": np.asarray(jop.a)}, device="cpu")
     if fmt == "ell":
         return linop_from_numpy({f: np.asarray(getattr(jop, f))
-                                 for f in jop._fields})
+                                 for f in jop._fields}, device="cpu")
     halves = [block_csr_from_numpy(
         *(np.asarray(getattr(d, f)) for f in
           ("blocks", "block_row", "block_col", "first_in_row")),
-        shape=d.shape) for d in (jop.fwd, jop.bwd)]
+        shape=d.shape, device="cpu") for d in (jop.fwd, jop.bwd)]
     return BlockCsrMatrix(*halves)
 
 
@@ -85,7 +85,8 @@ def _problem(fmt, seed=0, with_y_lo=False):
                           dtype=jnp.float64)
     jprob = jp.PdhgProblem(k_op=jop, **{
         name: jnp.asarray(v) for name, v in arrays.items()})
-    tprob = pdhg_problem_from_numpy(dict(arrays, k_op=_torch_op(k, fmt)))
+    tprob = pdhg_problem_from_numpy(dict(arrays, k_op=_torch_op(k, fmt)),
+                                    device="cpu")
     return jprob, tprob
 
 
@@ -107,7 +108,7 @@ def _state(jprob, seed=1, k=5):
              k=np.asarray(k, np.int32), eta=np.asarray(0.998 / norm_k),
              omega=np.asarray(0.7))
     jstate = jp.PdhgState(**{name: jnp.asarray(v) for name, v in s.items()})
-    return jstate, pdhg_state_from_numpy(s)
+    return jstate, pdhg_state_from_numpy(s, device="cpu")
 
 
 def _compare_states(tstate, jstate):
@@ -150,7 +151,8 @@ def test_block_windows(fmt, n_windows, theta):
                                         for k, v in ctl.items()}),
         n_windows, 1.0, 40, jnp.asarray(theta))
     ts, tc, tm = tp.pdhg_block_windows(
-        tprob, tstate, restart_ctl_from_numpy(ctl), n_windows, 1.0, 40,
+        tprob, tstate, restart_ctl_from_numpy(ctl, device="cpu"),
+        n_windows, 1.0, 40,
         torch.tensor(theta, dtype=torch.float64))
     _compare_states(ts, js)
     assert int(tc.n_restarts) == int(jc.n_restarts) >= 1

@@ -99,19 +99,23 @@ def _unbounded_lp():
     return _lp_dict(a, c, np.zeros(n), up, r - 0.5, np.full(m, np.inf))
 
 
-def _solve_both(d, jax_format=None, **opts):
+def _solve_both(d, jax_format=None, run_jax=True, **opts):
+    """(JAX run, port run), each (status, solution, info); the JAX run
+    is None when run_jax is False."""
     jopts, topts = JOptions(), HighsOptions()
     for k, v in opts.items():
         setattr(jopts, k, v)
         setattr(topts, k, v)
     if jax_format is not None:
         jopts.tpu_matrix_format = jax_format
-    jst, jsol, jinfo = jax_solve(_jax_lp(d), jopts)
+    jax_run = jax_solve(_jax_lp(d), jopts) if run_jax else None
     tst, tsol, tinfo = solve_lp_pdlp(lp_from_numpy(d), topts, device="cpu")
-    print(f"{opts}: JAX {JStatus(jst).name} {jinfo.iterations} iterations "
-          f"obj {jinfo.primal_obj!r}; port {HighsModelStatus(tst).name} "
+    jax_note = (f"JAX {JStatus(jax_run[0]).name} {jax_run[2].iterations} "
+                f"iterations obj {jax_run[2].primal_obj!r}; " if run_jax
+                else "")
+    print(f"{opts}: {jax_note}port {HighsModelStatus(tst).name} "
           f"{tinfo.iterations} iterations obj {tinfo.primal_obj!r}")
-    return (jst, jsol, jinfo), (tst, tsol, tinfo)
+    return jax_run, (tst, tsol, tinfo)
 
 
 def _assert_agree(jax_run, port_run, iterations=True):
@@ -202,8 +206,7 @@ def test_bound_only_lp():
 
 @pytest.mark.parametrize("name,value,match", [
     ("solver", "pdlp", "not yet ported"),
-    ("tpu_mesh_shape", "2", "not yet ported"),
-    ("tpu_matrix_format", "bucketperm", "not yet ported")])
+    ("tpu_mesh_shape", "2", "not yet ported")])
 def test_options_not_yet_ported_raise(name, value, match):
     opts = HighsOptions()
     setattr(opts, name, value)
