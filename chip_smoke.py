@@ -14,15 +14,17 @@ Phases, each of which fails the run (non-zero exit) when it fails:
             ||(|A| |x|)||_inf), and the times of the kernel, the plain
             version and one PyTorch BSR product (a yardstick only),
             beside the byte and operation bound;
-3. onehot   the one-hot gather and scatter kernels on the synth50k
-            operator (50,176 x 50,176 padded, P = 7 slots per cell, 3,072
-            slots per 128-block), in float32 and float64, K x and K' y:
-            the gather exactly equal to its plain version (one product per
-            output), the scatter and the whole product against theirs
-            (f64: 1e-12, f32: 1e-5, relative to the sum of the absolute
-            terms: both sum the same terms in other orders), with the
-            times of each kernel, its plain version, the whole product and
-            one `torch.sparse_csr_tensor @ x` of the same matrix;
+3. onehot   the fused one-hot kernel (the whole product y = K x in one
+            launch) on the synth50k operator (50,176 x 50,176 padded,
+            P = 7 slots per cell, a table of 499,953 entries per
+            direction), in float32 and float64, K x and K' y: against its
+            plain PyTorch version over the same table and against the JAX
+            package's composition over the padded cells (gather, relayout,
+            scatter, spill) in f64 (f64: 1e-12, f32: 1e-5, relative to
+            ||(|A| |x|)||_inf), the same bits on a rerun, one launch per
+            product, with the times of the kernel, its plain version and
+            one `torch.sparse_csr_tensor @ x` of the same matrix (a
+            yardstick only) beside the byte bound of the table;
 4. probe    the gather-rate probe at the shapes of the JAX package's two
             probes, f32 and f64: exactly equal to `torch.gather`, rates;
 5. small    a 256 x 256 block LP through `Highs` on the card and on the
@@ -44,7 +46,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 8. synth50k through `Highs().run()` with solver "hipdlp" and
             tpu_matrix_format "onehot" (tolerance 1e-7): kOptimal, the
             same independent KKT check, the objective within 1e-6 of
-            upstream HiGHS's, and each one-hot kernel launched at least
+            upstream HiGHS's, and the one-hot kernel launched at least
             twice per PDLP iteration.
 
 Kernel times (`ms`, `plain_ms`, `library_ms`) are device times with a
@@ -87,12 +89,11 @@ FORMATS_RUNS = [(fmt, 1e-5) for fmt in FORMATS] + [("bucketperm", 1e-6)]
 KERNELS = {
     "block_csr_spmv": ("highs_tpu_torch/csrc/block_csr_spmv.cu",
                        "highs_tpu/ops/block_csr.py:111"),
-    "onehot_gather": ("highs_tpu_torch/csrc/onehot_spmv.cu",
-                      "highs_tpu/ops/onehot_spmv.py:132"),
-    "onehot_scatter": ("highs_tpu_torch/csrc/onehot_spmv.cu",
-                       "highs_tpu/ops/onehot_spmv.py:146"),
+    "onehot_spmv": ("highs_tpu_torch/csrc/onehot_spmv.cu",
+                    "highs_tpu/ops/onehot_spmv.py:132, "
+                    "highs_tpu/ops/onehot_spmv.py:146"),
     "gather_probe": ("highs_tpu_torch/csrc/gather_probe.cu",
-                     "tools/gather_probe.py:79"),
+                     "tools/gather_probe.py:79, tools/gather_probe2.py:33"),
 }
 
 
@@ -245,122 +246,92 @@ def padded_synth50k():
     return a, b, c, a_pad
 
 
+def onehot_bound_ms(tab):
+    """The least time of one fused one-hot product: the table (row
+    pointer, columns, values) and x read once, y written once; 2
+    operations a term."""
+    from highs_tpu_torch.tools.card import bound_ms
+    item = tab.val.element_size()
+    nbytes = (tab.row_ptr.numel() * 4 + tab.col.numel() * 4 +
+              tab.val.numel() * item + (tab.shape[0] + tab.shape[1]) * item)
+    return bound_ms(nbytes, 2.0 * tab.val.numel(), tab.val.dtype)
+
+
 def onehot_phase(a_pad, device):
-    """The one-hot kernels against plain on the synth50k operator."""
+    """The fused one-hot kernel against plain on the synth50k operator."""
     import numpy as np
     import torch
     from highs_tpu_torch.ops import linops
     from highs_tpu_torch.ops import onehot_spmv as oh
-    from highs_tpu_torch.tools.card import bound_ms, call_ms, time_ms
+    from highs_tpu_torch.tools.card import call_ms, time_ms
 
     op64 = oh.from_scipy_onehot(a_pad, torch.float64, device=device)
     p = op64.fwd.p_slots
     abs_op = oh.from_scipy_onehot(abs(a_pad), torch.float64, p_slots=p,
                                   device=device)
+    # the JAX package's padded cells, for the JAX-shaped plain product
+    cells = (oh.build_cells(a_pad, p, torch.float64, device),
+             oh.build_cells(a_pad.T.tocsr(), p, torch.float64, device))
     log(f"onehot: synth50k padded to {a_pad.shape}, {a_pad.nnz} nonzeros, "
-        f"P {p}, slots per block {op64.fwd.gcol.shape[1] * 128} (gather) "
-        f"{op64.fwd.srow.shape[1] * 128} (scatter), spilled "
-        f"{op64.fwd.pad_cnt} (K) {op64.bwd.pad_cnt} (K')")
+        f"P {p}, table entries {op64.fwd.col.numel()} (K) "
+        f"{op64.bwd.col.numel()} (K'), of them spilled {op64.fwd.pad_cnt} "
+        f"(K) {op64.bwd.pad_cnt} (K'); padded-cell slots per direction "
+        f"{cells[0].gcol.numel()}")
     rng = np.random.default_rng(8)
-    plain = (oh.gather_plain, oh.scatter_plain)
-    records = {"onehot_gather": [], "onehot_scatter": []}
+    records = []
     for dtype in (torch.float32, torch.float64):
         name = dtype_name(dtype)
         op = op64 if dtype == torch.float64 else oh.from_scipy_onehot(
             a_pad, dtype, p_slots=p, device=device)
         lib = linops.from_scipy_bcoo(a_pad, dtype=dtype, device=device)
-        for direction, oc, abs_oc, lib_a in (
-                ("mv", op.fwd, abs_op.fwd, lib.a),
-                ("rmv", op.bwd, abs_op.bwd, lib.at)):
-            x = torch.as_tensor(rng.standard_normal(oc.shape[1]),
+        for direction, tab, abs_tab, oc, lib_a in (
+                ("mv", op.fwd, abs_op.fwd, cells[0], lib.a),
+                ("rmv", op.bwd, abs_op.bwd, cells[1], lib.at)):
+            x = torch.as_tensor(rng.standard_normal(tab.shape[1]),
                                 dtype=dtype, device=device)
-            item = x.element_size()
-            before = dict(oh.LAUNCHES)
-            u = oh.onehot_gather(oc.gcol, oc.gval, x)
-            product = oh.spmv_cells(oc, x)
-            v = oc.vbuf.view(oc.srow.shape).clone()  # this x's relayout
-            y = oh.onehot_scatter(oc.srow, v)
+            before = oh.LAUNCHES["onehot_spmv"]
+            got = oh.onehot_spmv(tab, x)
             sync(device)
-            if device.type == "cuda" and (
-                    oh.LAUNCHES["onehot_gather"] != before["onehot_gather"] + 2
-                    or oh.LAUNCHES["onehot_scatter"] !=
-                    before["onehot_scatter"] + 2):
-                raise RuntimeError("the one-hot wrappers did not launch "
-                                   "their kernels on CUDA tensors")
-            want_product = oh.spmv_cells(oc, x, *plain)
-            abs_product = oh.spmv_cells(abs_oc, x.abs().double(), *plain)
-            p_err, p_rel = relative_error(product, want_product,
-                                          abs_product.abs().max().item())
+            if device.type == "cuda" and \
+                    oh.LAUNCHES["onehot_spmv"] != before + 1:
+                raise RuntimeError("the one-hot wrapper did not launch its "
+                                   "kernel once on a CUDA tensor")
+            same_bits = bool(torch.equal(got, oh.onehot_spmv(tab, x)))
+            want = oh.onehot_spmv_plain(tab, x)
+            scale = oh.onehot_spmv_plain(
+                abs_tab, x.abs().double()).abs().max().item()
+            err, rel = relative_error(got, want, scale)
+            # the JAX-shaped composition over the padded cells, in f64
+            cells_err, cells_rel = relative_error(
+                got, oh.spmv_cells_plain(oc, x.double()), scale)
             lib_ms, lib_note = timed_library(
-                lambda: (torch.mv, (lib_a, x)), device, want_product)
-            product_ms = time_ms(oh.spmv_cells, device, oc, x)
-            product_call_ms = call_ms(lambda: oh.spmv_cells(oc, x), device)
-            plain_product_ms = time_ms(
-                lambda o, v: oh.spmv_cells(o, v, *plain), device, oc, x)
-            # gather: one product per output, so exactly the plain version
-            u_want = oh.gather_plain(oc.gcol, oc.gval, x)
-            g_err = (u.double() - u_want.double()).abs().max().item()
-            g_bound = bound_ms(oc.gcol.numel() * 4 + oc.gval.numel() * item +
-                               u.numel() * item + x.numel() * item,
-                               float(oc.gval.numel()), dtype)
-            records["onehot_gather"].append(dict(
-                dtype=name, direction=direction, slots=oc.gval.numel(),
-                max_abs_err=g_err, tolerance=0.0,
-                ok=bool(torch.equal(u, u_want)),
-                ms=time_ms(oh.onehot_gather, device, oc.gcol, oc.gval, x),
-                call_ms=call_ms(lambda: oh.onehot_gather(oc.gcol, oc.gval,
-                                                         x), device),
-                plain_ms=time_ms(oh.gather_plain, device, oc.gcol, oc.gval,
-                                 x),
-                bound_ms=g_bound[0], bound_by=g_bound[1]))
-            # scatter: the same sums in another order
-            y_want = oh.scatter_plain(oc.srow, v)
-            s_err, s_rel = relative_error(
-                y, y_want,
-                oh.scatter_plain(oc.srow, v.abs().double()).abs().max().item())
-            s_bound = bound_ms(oc.srow.numel() * 4 + v.numel() * item +
-                               y.numel() * item, float(v.numel()), dtype)
-            records["onehot_scatter"].append(dict(
-                dtype=name, direction=direction, slots=v.numel(),
-                max_abs_err=s_err, rel_err=s_rel, tolerance=TOLERANCE[name],
-                ok=bool(math.isfinite(s_err) and s_rel <= TOLERANCE[name]),
-                deterministic=bool(torch.equal(
-                    y, oh.onehot_scatter(oc.srow, v))),
-                ms=time_ms(oh.onehot_scatter, device, oc.srow, v),
-                call_ms=call_ms(lambda: oh.onehot_scatter(oc.srow, v),
-                                device),
-                plain_ms=time_ms(oh.scatter_plain, device, oc.srow, v),
-                bound_ms=s_bound[0], bound_by=s_bound[1]))
-            product_ok = bool(math.isfinite(p_err) and
-                              p_rel <= TOLERANCE[name])
-            for key in records:
-                records[key][-1].update(
-                    product_ok=product_ok, product_max_abs_err=p_err,
-                    product_rel_err=p_rel, product_ms=product_ms,
-                    product_call_ms=product_call_ms,
-                    plain_product_ms=plain_product_ms, library_ms=lib_ms)
-            g, s = records["onehot_gather"][-1], records["onehot_scatter"][-1]
-            log(f"onehot {name} {direction}: gather max_abs_err {g_err:.3e} "
-                f"(exact: {g['ok']}) kernel_ms {g['ms']:.4f} plain_ms "
-                f"{g['plain_ms']:.4f} per_call_ms {g['call_ms']:.4f} "
-                f"bound_us {g['bound_ms'] * 1e3:.2f} "
-                f"({g['bound_by']}); scatter rel {s_rel:.3e} (tol "
-                f"{TOLERANCE[name]:g}, same bits on a rerun: "
-                f"{s['deterministic']}) kernel_ms {s['ms']:.4f} plain_ms "
-                f"{s['plain_ms']:.4f} per_call_ms {s['call_ms']:.4f} "
-                f"bound_us {s['bound_ms'] * 1e3:.2f} "
-                f"({s['bound_by']}); product rel {p_rel:.3e} ms "
-                f"{product_ms:.4f} (per call {product_call_ms:.4f}) "
-                f"plain_ms {plain_product_ms:.4f} "
-                f"library_ms {lib_ms} [torch.sparse_csr_tensor @ x, "
-                f"{lib_note}]")
+                lambda: (torch.mv, (lib_a, x)), device, want)
+            b_ms, b_by = onehot_bound_ms(tab)
+            tol = TOLERANCE[name]
+            rec = dict(
+                dtype=name, direction=direction, entries=tab.col.numel(),
+                max_abs_err=err, rel_err=rel, tolerance=tol,
+                cells_rel_err=cells_rel, same_bits=same_bits,
+                ok=bool(math.isfinite(err) and rel <= tol and
+                        cells_rel <= tol and same_bits),
+                ms=time_ms(oh.onehot_spmv, device, tab, x),
+                call_ms=call_ms(lambda: oh.onehot_spmv(tab, x), device),
+                plain_ms=time_ms(oh.onehot_spmv_plain, device, tab, x),
+                library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+            log(f"onehot {name} {direction}: entries {rec['entries']} "
+                f"max_abs_err {err:.3e} rel {rel:.3e} (tol {tol:g}; vs the "
+                f"padded-cell composition {cells_rel:.3e}; same bits on a "
+                f"rerun: {same_bits}) kernel_ms {rec['ms']:.4f} (per call "
+                f"{rec['call_ms']:.4f}) plain_ms {rec['plain_ms']:.4f} "
+                f"bound_us {b_ms * 1e3:.2f} ({b_by}) library_ms {lib_ms} "
+                f"[torch.sparse_csr_tensor @ x, {lib_note}]")
+            records.append(rec)
         del op, lib
-    del op64, abs_op
-    bad = [r for recs in records.values() for r in recs
-           if not (r["ok"] and r["product_ok"])]
+    del op64, abs_op, cells
+    bad = [r for r in records if not r["ok"]]
     if bad:
-        raise RuntimeError(f"one-hot kernels disagree with their plain "
-                           f"versions: {bad}")
+        raise RuntimeError(f"the one-hot kernel disagrees with its plain "
+                           f"version: {bad}")
     return records
 
 
@@ -475,8 +446,7 @@ def reset_launches():
     from highs_tpu_torch.tools import gather_probe
     block_csr.LAUNCHES = 0
     gather_probe.LAUNCHES = 0
-    for key in onehot_spmv.LAUNCHES:
-        onehot_spmv.LAUNCHES[key] = 0
+    onehot_spmv.LAUNCHES["onehot_spmv"] = 0
 
 
 def read_launches():
@@ -484,7 +454,8 @@ def read_launches():
     from highs_tpu_torch.ops import onehot_spmv
     from highs_tpu_torch.tools import gather_probe
     return {"block_csr_spmv": block_csr.LAUNCHES,
-            "gather_probe": gather_probe.LAUNCHES, **onehot_spmv.LAUNCHES}
+            "gather_probe": gather_probe.LAUNCHES,
+            "onehot_spmv": onehot_spmv.LAUNCHES["onehot_spmv"]}
 
 
 def solve_phase(name, a, b, c, upper, options, anchor, path_kernels,
@@ -619,7 +590,7 @@ def main() -> int:
     bc_records = run("blockcsr", blockcsr_phase, a64, device)
     oh_records = run("onehot", onehot_phase, a50_pad, device)
     probe_records = run("probe", probe_phase, device)
-    check_timings({"block_csr_spmv": bc_records, **oh_records,
+    check_timings({"block_csr_spmv": bc_records, "onehot_spmv": oh_records,
                    "gather_probe": probe_records})
     run("small", small_phase, device)
     formats = run("formats", formats_phase, device)
@@ -631,7 +602,7 @@ def main() -> int:
         "synth50k", solve_phase, "synth50k", a50, b50, c50,
         np.full(a50.shape[1], UPPER),
         {"solver": "hipdlp", "tpu_matrix_format": "onehot"},
-        SYNTH50K_OBJECTIVE, ["onehot_gather", "onehot_scatter"], device)
+        SYNTH50K_OBJECTIVE, ["onehot_spmv"], device)
 
     probe_head = [r for r in probe_records
                   if r["name"] == gather_probe.SHAPES[0][0]]
@@ -644,23 +615,16 @@ def main() -> int:
             {"path": None, "shape": gather_probe.SHAPES[0][0],
              "library": "torch.gather (also its plain version)",
              "all_shapes": probe_records}),
-    }
-    for kernel in ("onehot_gather", "onehot_scatter"):
-        lines[kernel] = headline(
-            oh_records[kernel], oh_launches[kernel],
+        "onehot_spmv": headline(
+            oh_records, oh_launches["onehot_spmv"],
             {"path": "synth50k", "pdlp_iterations": oh_iters,
-             "library": "the whole one-hot product (gather, relayout, "
-                        "scatter, spill) against one "
-                        "torch.sparse_csr_tensor @ x of the same matrix",
-             "product_ms": statistics.fmean(
-                 r["product_ms"] for r in oh_records[kernel]
-                 if r["dtype"] == "float32")})
+             "library": "torch.sparse_csr_tensor @ x of the same matrix"}),
+    }
     lines["gather_probe"]["variants"] = probe_head
     summary = {"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0],
          "replaces": KERNELS[name][1], **lines[name]}
-        for name in ("block_csr_spmv", "onehot_gather", "onehot_scatter",
-                     "gather_probe")],
+        for name in ("block_csr_spmv", "onehot_spmv", "gather_probe")],
         "formats": formats, "synth50k_seconds": oh_seconds,
         "phase_seconds": phase_s,
         "total_seconds": time.perf_counter() - t_start}

@@ -1,184 +1,129 @@
-// One-hot cell SpMV for Hopper (sm_90a): the gather and the scatter of
-// the padded-cell layout of highs_tpu_torch/ops/onehot_spmv.py.
+// One-hot SpMV for Hopper (sm_90a): the whole product y = K x of one
+// direction of highs_tpu_torch/ops/onehot_spmv.py in a single launch.
 //
-// Layout.  A matrix padded to (mb * 128, nb * 128) is cut into 128 x 128
-// cells; cell (j, i) keeps up to P of its nonzeros in slots.
-//   gather side, j-major:  gcol[j][s], gval[j][s], s < slots_g: local
-//     column and value of slot s of column block j (padding: 0 and 0);
-//   scatter side, i-major: srow[i][s], s < slots_s: local row of slot s
-//     of row block i (padding: row 0, and its value in V is 0).
-// Between the two kernels torch permutes U (j-major) into V (i-major).
+// It replaces both Pallas TPU kernels of highs_tpu/ops/onehot_spmv.py
+// together with the XLA code between and after them (`_spmv_cells`,
+// :167-206):
+//   _gather_kernel (:132)   U[j][s] = gval[j][s] * x[128 j + gcol[j][s]],
+//   the relayout            U (j-major) -> V (i-major), re-padded,
+//   _scatter_kernel (:146)  y[128 i + l] = sum_s [srow[i][s] == l] V[i][s],
+//   the spill               y[spill_row] += spill_val * x[spill_col].
+// The TPU computes the lookup and the histogram as iota compares over
+// 128 lanes and pads every cell to P slots in (8, 128) tiles, because it
+// has no cheap addressable gather or scatter.  The card has both, so the
+// padded cells are not carried over: the host derives from them once a
+// table that holds each kept slot and each spilled entry exactly once
+// (no padding), grouped by output row:
+//   row_ptr[r] .. row_ptr[r + 1]   the entries of padded row r (int32),
+//   col[e], val[e]                 global column (int32) and value.
+// Inside a row the entries come in the cells' order (column block j,
+// then slot p), then the row's spill entries.
 //
-// onehot_gather replaces the Pallas TPU kernel
-// highs_tpu/ops/onehot_spmv.py:_gather_kernel (:132):
-//     U[j][s] = gval[j][s] * x[128 j + gcol[j][s]].
-// The TPU kernel computes the lookup as an iota compare and a masked sum
-// over 128 lanes, because the TPU has no cheap addressable gather.  Here
-// it is a plain gather: a block stages the 128 values of x_j in shared
-// memory once, and each thread reads its slots' column and value
-// (coalesced), looks x up in shared memory and writes U (coalesced).
-// Grid: (column block j, chunk of kGatherChunk slots).
+// Design.  Each output row is owned by a fixed group of kLanesPerRow = 8
+// lanes (a warp takes 4 rows, a block of 256 threads 32 rows): synth50k
+// has about 10 terms a row, so a whole warp per row would idle most of
+// its lanes.  Lane k of a group takes the row's entries k, k + 8, ...:
+// neighbouring lanes read neighbouring entries, and the 4 rows of a warp
+// are contiguous in the table, so the loads are coalesced.  The kernel
+// is bound by the latency of three dependent loads (row pointer, then
+// column and value, then x), so a lane issues the column and value loads
+// of kBatch = 4 terms at once, then their x loads, before it adds any:
+// one pass covers rows of up to 32 terms (synth50k's longest has 26).
+// x is read through the read-only path (__ldg); it is 196 KB in f32 and
+// stays in the L2.  Each lane sums its terms in order in a register (FMA
+// in the data's type: f32 stays f32, f64 stays f64), then the group adds
+// its 8 partial sums with a fixed xor-shuffle tree and its first lane
+// writes y once.  So there are no atomics, no zero-fill pass and no shared
+// memory, every sum has one fixed order, and a rerun gives the same
+// bits.  A row without entries (the padding rows) gets 0.
 //
-// onehot_scatter replaces _scatter_kernel (:146):
-//     y[128 i + l] = sum_s [srow[i][s] == l] * V[i][s].
-// The TPU kernel's grid runs in order over slot tiles and accumulates a
-// resident output block, zeroed at t == 0 (:154-156).  Here one block
-// owns one row block i and a loop inside the block replaces that grid
-// axis; each output element is written once, with no global atomics and
-// no zero-fill pass.  Inside the block each warp takes 32 consecutive
-// slots at a time and keeps its own 128-entry partial sum in shared
-// memory: lanes holding the same row are grouped with __match_any_sync,
-// the group's lowest lane adds their values in lane order into the
-// warp's partial sum, and at the end thread l adds the warps' partial
-// sums for row l in warp order.  So the order of every sum is fixed and
-// the result is the same bit for bit from run to run.  Slots whose value
-// is zero are skipped (exact): about 60% of the synth50k slots are
-// padding, all on row 0, and would otherwise pile onto one entry.
+// Bound: bytes.  Every input read once and y written once: the table
+// (4 (m + 1) + (4 + itemsize) nnz bytes), x and y, 4.6 MB for synth50k
+// in f32 (1.4 us at 3.35 TB/s) and 7.0 MB in f64; 2 operations a term,
+// far below the card's rate.  The padded-cell product (gather kernel,
+// relayout, scatter kernel, spill) moved about 33 MB in six launches.
 //
-// Bound: bytes.  A product reads each slot's index (4 bytes) and value
-// and writes or reads one value per slot, plus x and y: for synth50k in
-// f32 about 14.5 MB for the gather and 9.6 MB for the scatter
-// (1,204,224 slots per side), a few microseconds at 3.35 TB/s, and one
-// multiply (gather) or add (scatter) per slot, far below the card's
-// operation rate.  Both kernels keep the data's type in every operation:
-// f32 stays f32 and f64 stays f64.
-//
-// Plain C interface for ctypes; each entry point launches on the given
+// Plain C interface for ctypes: the entry point launches on the given
 // stream, allocates nothing and returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kLanes = 128;          // rows or columns of a block
-constexpr int kGatherThreads = 256;
-constexpr int kGatherChunk = 1024;   // slots per gather block
-constexpr int kScatterThreads = 256;
-constexpr int kWarps = kScatterThreads / 32;
-constexpr int kScatterUnroll = 4;    // 32-slot tiles in flight per warp
+constexpr int kThreads = 256;
+constexpr int kLanesPerRow = 8;
+constexpr int kRowsPerBlock = kThreads / kLanesPerRow;
+constexpr int kBatch = 4;  // terms whose loads a lane issues together
 
 template <typename T>
-__global__ void __launch_bounds__(kGatherThreads)
-onehot_gather_kernel(const int* __restrict__ gcol,
-                     const T* __restrict__ gval,
-                     const T* __restrict__ x,
-                     T* __restrict__ u, int slots) {
-  __shared__ T xs[kLanes];
-  const int j = blockIdx.x;
-  if (threadIdx.x < kLanes) {
-    xs[threadIdx.x] = x[static_cast<size_t>(j) * kLanes + threadIdx.x];
+__global__ void __launch_bounds__(kThreads)
+onehot_spmv_kernel(const int* __restrict__ row_ptr,
+                   const int* __restrict__ col,
+                   const T* __restrict__ val,
+                   const T* __restrict__ x,
+                   T* __restrict__ y, int m) {
+  const int row = blockIdx.x * kRowsPerBlock + threadIdx.x / kLanesPerRow;
+  const int lane = threadIdx.x % kLanesPerRow;
+  int begin = 0;
+  int end = 0;
+  if (row < m) {
+    begin = __ldg(row_ptr + row);
+    end = __ldg(row_ptr + row + 1);
   }
-  __syncthreads();
-  const size_t base = static_cast<size_t>(j) * slots;
-  const int begin = blockIdx.y * kGatherChunk;
-  const int end = min(slots, begin + kGatherChunk);
-#pragma unroll 4
-  for (int s = begin + threadIdx.x; s < end; s += kGatherThreads) {
-    u[base + s] = gval[base + s] * xs[gcol[base + s]];
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kScatterThreads)
-onehot_scatter_kernel(const int* __restrict__ srow,
-                      const T* __restrict__ v,
-                      T* __restrict__ y, int slots) {
-  __shared__ T part[kWarps][kLanes];
-  __shared__ T stage[kWarps][32];
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  for (int e = threadIdx.x; e < kWarps * kLanes; e += kScatterThreads) {
-    part[e / kLanes][e % kLanes] = T(0);
-  }
-  __syncthreads();
-  const size_t base = static_cast<size_t>(blockIdx.x) * slots;
-  // slots is a multiple of 32, so a tile is either whole or absent and
-  // every lane of a warp takes the same branches below
-  for (int t0 = warp * 32; t0 < slots;
-       t0 += kScatterThreads * kScatterUnroll) {
-    T vals[kScatterUnroll];
-    int keys[kScatterUnroll];
+  T sum = T(0);
+  for (int e0 = begin + lane; e0 < end; e0 += kLanesPerRow * kBatch) {
+    int c[kBatch];
+    T v[kBatch];
+    T xv[kBatch];
 #pragma unroll
-    for (int k = 0; k < kScatterUnroll; ++k) {
-      const int s = t0 + k * kScatterThreads + lane;
-      vals[k] = T(0);
-      keys[k] = -1;
-      if (s < slots) {
-        vals[k] = v[base + s];
-        const int row = srow[base + s];
-        keys[k] = vals[k] != T(0) ? row : -1;
-      }
+    for (int q = 0; q < kBatch; ++q) {
+      const int e = e0 + q * kLanesPerRow;
+      c[q] = e < end ? __ldg(col + e) : 0;
+      v[q] = e < end ? __ldg(val + e) : T(0);
     }
 #pragma unroll
-    for (int k = 0; k < kScatterUnroll; ++k) {
-      if (t0 + k * kScatterThreads >= slots) break;
-      const unsigned peers = __match_any_sync(0xffffffffu, keys[k]);
-      stage[warp][lane] = vals[k];
-      __syncwarp();
-      if (keys[k] >= 0 && lane == __ffs(peers) - 1) {
-        T sum = stage[warp][lane];
-        for (unsigned rest = peers & (peers - 1); rest; rest &= rest - 1) {
-          sum += stage[warp][__ffs(rest) - 1];
-        }
-        part[warp][keys[k]] += sum;
-      }
-      __syncwarp();
+    for (int q = 0; q < kBatch; ++q) {
+      xv[q] = e0 + q * kLanesPerRow < end ? __ldg(x + c[q]) : T(0);
+    }
+    // the terms in entry order: the same sum on every run
+#pragma unroll
+    for (int q = 0; q < kBatch; ++q) {
+      if (e0 + q * kLanesPerRow < end) sum = fma(v[q], xv[q], sum);
     }
   }
-  __syncthreads();
-  if (threadIdx.x < kLanes) {
-    T acc = part[0][threadIdx.x];
+  // every lane of the warp reaches the shuffles: a group of 8 lanes is
+  // aligned to 8, so xor 4, 2, 1 stays inside it
 #pragma unroll
-    for (int w = 1; w < kWarps; ++w) acc += part[w][threadIdx.x];
-    y[static_cast<size_t>(blockIdx.x) * kLanes + threadIdx.x] = acc;
+  for (int off = kLanesPerRow / 2; off > 0; off /= 2) {
+    sum += __shfl_xor_sync(0xffffffffu, sum, off);
   }
+  if (row < m && lane == 0) y[row] = sum;
 }
 
 template <typename T>
-int launch_gather(const void* gcol, const void* gval, const void* x,
-                  void* u, int nb, int slots, void* stream) {
-  if (nb > 0 && slots > 0) {
-    const dim3 grid(nb, (slots + kGatherChunk - 1) / kGatherChunk);
-    onehot_gather_kernel<T><<<grid, kGatherThreads, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int*>(gcol), static_cast<const T*>(gval),
-        static_cast<const T*>(x), static_cast<T*>(u), slots);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int launch_scatter(const void* srow, const void* v, void* y, int mb,
-                   int slots, void* stream) {
-  if (mb > 0) {
-    onehot_scatter_kernel<T><<<mb, kScatterThreads, 0,
-                               static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int*>(srow), static_cast<const T*>(v),
-        static_cast<T*>(y), slots);
+int launch(const void* row_ptr, const void* col, const void* val,
+           const void* x, void* y, int m, void* stream) {
+  if (m > 0) {
+    const int blocks = (m + kRowsPerBlock - 1) / kRowsPerBlock;
+    onehot_spmv_kernel<T><<<blocks, kThreads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int*>(row_ptr), static_cast<const int*>(col),
+        static_cast<const T*>(val), static_cast<const T*>(x),
+        static_cast<T*>(y), m);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-extern "C" int onehot_gather_f32(const void* gcol, const void* gval,
-                                 const void* x, void* u, int nb, int slots,
-                                 void* stream) {
-  return launch_gather<float>(gcol, gval, x, u, nb, slots, stream);
+extern "C" int onehot_spmv_f32(const void* row_ptr, const void* col,
+                               const void* val, const void* x, void* y,
+                               int m, void* stream) {
+  return launch<float>(row_ptr, col, val, x, y, m, stream);
 }
 
-extern "C" int onehot_gather_f64(const void* gcol, const void* gval,
-                                 const void* x, void* u, int nb, int slots,
-                                 void* stream) {
-  return launch_gather<double>(gcol, gval, x, u, nb, slots, stream);
-}
-
-extern "C" int onehot_scatter_f32(const void* srow, const void* v, void* y,
-                                  int mb, int slots, void* stream) {
-  return launch_scatter<float>(srow, v, y, mb, slots, stream);
-}
-
-extern "C" int onehot_scatter_f64(const void* srow, const void* v, void* y,
-                                  int mb, int slots, void* stream) {
-  return launch_scatter<double>(srow, v, y, mb, slots, stream);
+extern "C" int onehot_spmv_f64(const void* row_ptr, const void* col,
+                               const void* val, const void* x, void* y,
+                               int m, void* stream) {
+  return launch<double>(row_ptr, col, val, x, y, m, stream);
 }

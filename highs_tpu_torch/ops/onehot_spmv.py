@@ -1,31 +1,30 @@
 """One-hot padded-cell SpMV for SCATTERED sparsity.
 
-The layout is the JAX package's (`highs_tpu/ops/onehot_spmv.py`), built
-on the host once: the nonzeros land in cells over 128x128 tile
-coordinates; cell (j, i) holds up to P nonzeros of column block j and
-row block i (local column, local row, value), and the nonzeros past P
-spill to a COO tail.  One product y = K x runs
+The reference layout is the JAX package's (`highs_tpu/ops/onehot_spmv.py`),
+built on the host once by `cell_layout`: the nonzeros land in cells over
+128x128 tile coordinates; cell (j, i) holds up to P nonzeros of column
+block j and row block i (local column, local row, value), and the
+nonzeros past P spill to a COO tail.  The JAX package computes y = K x
+from it in four steps: a gather kernel (U = val * x_j[col], j-major), a
+relayout of U into the scatter side's i-major order, a scatter kernel
+(y_i[l] = sum_s [row == l] V), and the spill.  `spmv_cells_plain` is that
+composition in plain PyTorch, over `build_cells`' tensors.
 
-1. the gather kernel: U[j, s] = gval[j, s] * x[128 j + gcol[j, s]] for
-   every slot s of column block j (j-major);
-2. the relayout: the slots of U, stripped of their lane padding, are
-   permuted j-major -> i-major into the scatter side's zero-padded
-   buffer `vbuf` (one torch copy);
-3. the scatter kernel: y[128 i + l] = sum_s [srow[i, s] == l] V[i, s];
-4. the spill: `index_add_` of the COO tail.
-
-The two kernels are `csrc/onehot_spmv.cu` (see the source for their
-design and bound); `gather_plain` and `scatter_plain` compute the same
-functions in plain PyTorch.  A wrapper takes its plain version only for
-a CPU tensor; a CUDA tensor launches the kernel or raises.
+The card needs neither the padding nor the relayout: they answer the
+TPU's lack of an addressable gather.  So `build_table` derives from the
+cells, once, a table that holds every kept slot and every spilled entry
+exactly once, grouped by output row (a row pointer over the padded rows,
+global columns, values), and one hand-written kernel,
+`csrc/onehot_spmv.cu`, computes the whole product from it in a single
+launch (see the source for its design and bound).  `onehot_spmv_plain`
+computes the kernel's function in plain PyTorch over the same table.
+The wrapper `onehot_spmv` takes the plain version only for a CPU
+tensor; a CUDA tensor launches the kernel or raises.
 
 Unlike the JAX package, which stores the values in float32 whatever is
 asked (`_build_cells`), the values keep the requested dtype, so an f64
-operator computes in f64.  The index arrays are the JAX package's, int32.
-
-`vbuf` is scratch that every product of the operator overwrites (its
-padding stays zero), so the products of one operator run in stream
-order: do not run them concurrently on different CUDA streams.
+operator computes in f64.  The index arrays are int32, as the JAX
+package's.
 """
 from __future__ import annotations
 
@@ -39,22 +38,25 @@ import torch
 from ..device import resolve_device
 
 BLOCK = 128
+# the kernel indexes the table with int32
+MAX_ENTRIES = 2 ** 31 - 1
 
-# kernel launches in this process: each wrapper call that launches its
+# kernel launches in this process: each wrapper call that launches the
 # kernel adds one (the plain versions never count)
-LAUNCHES = {"onehot_gather": 0, "onehot_scatter": 0}
+LAUNCHES = {"onehot_spmv": 0}
 
 _LIB = None
 
 
 class OneHotCells(NamedTuple):
-    """One direction (K or K') in padded-cell layout.
+    """One direction (K or K') in the JAX package's padded-cell layout:
+    the reference state of the table, and the input of
+    `spmv_cells_plain`.
 
     gcol/gval: (nb, Rg, 128) gather-side slots, j-major: slot s of
     column block j holds cell (j, i=s//P, p=s%P), padded with value 0.
     srow: (mb, Rs, 128) scatter-side local rows, i-major (padding: 0).
-    spill_*: the COO remainder past P slots per cell.
-    vbuf: (mb, Rs*128) scatter-side staging buffer, zero past nb*P."""
+    spill_*: the COO remainder past P slots per cell."""
 
     gcol: torch.Tensor
     gval: torch.Tensor
@@ -62,10 +64,22 @@ class OneHotCells(NamedTuple):
     spill_val: torch.Tensor
     spill_row: torch.Tensor
     spill_col: torch.Tensor
-    vbuf: torch.Tensor
     shape: Tuple[int, int]  # padded (m, n)
     p_slots: int
     pad_cnt: int
+
+
+class OneHotTable(NamedTuple):
+    """One direction (K or K') as the kernel reads it: the entries of
+    padded row r are row_ptr[r] .. row_ptr[r + 1] of col and val, in the
+    cells' order (column block, slot), then the row's spill entries."""
+
+    row_ptr: torch.Tensor  # (m + 1,) int32
+    col: torch.Tensor  # (nnz,) int32, global column
+    val: torch.Tensor  # (nnz,) the operator's dtype
+    shape: Tuple[int, int]  # padded (m, n)
+    p_slots: int
+    pad_cnt: int  # entries that spilled past P slots
 
 
 def _ceil_to(v: int, q: int) -> int:
@@ -112,14 +126,43 @@ def cell_layout(mat: sp.spmatrix, p_slots: int):
             int((~keep).sum()))
 
 
+def table_layout(layout, p_slots: int):
+    """The kernel's table derived from a `cell_layout`, as numpy arrays:
+    (row_ptr, col, val), values in float64.  The slots of value zero are
+    left out: every padding slot, and any explicit zero of the matrix,
+    whose term is exactly zero."""
+    gcol, gval, srow, s_val, s_row, s_col, _ = layout
+    nb, mb = gcol.shape[0], srow.shape[0]
+    p = p_slots
+    # the kept slots, i-major: (mb, nb, p) as the scatter side holds them
+    lcol = gcol.reshape(nb, -1)[:, :mb * p].reshape(nb, mb, p)
+    lval = gval.reshape(nb, -1)[:, :mb * p].reshape(nb, mb, p)
+    lcol, lval = lcol.transpose(1, 0, 2), lval.transpose(1, 0, 2)
+    lrow = srow.reshape(mb, -1)[:, :nb * p].reshape(mb, nb, p)
+    i = np.arange(mb, dtype=np.int64)[:, None, None]
+    j = np.arange(nb, dtype=np.int64)[None, :, None]
+    kept = lval != 0
+    row = np.concatenate([(BLOCK * i + lrow)[kept], s_row.astype(np.int64)])
+    col = np.concatenate([(BLOCK * j + lcol)[kept], s_col.astype(np.int64)])
+    val = np.concatenate([lval[kept], s_val])
+    if len(val) > MAX_ENTRIES:
+        raise ValueError(f"{len(val)} entries: the one-hot kernel indexes "
+                         f"at most {MAX_ENTRIES}")
+    # a stable sort by row keeps the order above inside each row: cells
+    # by (j, p), then the spill
+    order = np.argsort(row, kind="stable")
+    row_ptr = np.searchsorted(row[order], np.arange(mb * BLOCK + 1))
+    return (row_ptr.astype(np.int32), col[order].astype(np.int32),
+            val[order])
+
+
 def build_cells(mat: sp.spmatrix, p_slots: int, dtype: torch.dtype,
                 device=None) -> OneHotCells:
-    """One direction on `device` (default CUDA), values in `dtype`."""
+    """One direction in padded-cell layout on `device` (default CUDA),
+    values in `dtype`."""
     device = resolve_device(device)
     gcol, gval, srow, s_val, s_row, s_col, pad_cnt = cell_layout(
         mat, p_slots)
-    mb, rs = srow.shape[0], srow.shape[1]
-    nb = gcol.shape[0]
 
     def dev(a, dt=None):
         return torch.as_tensor(a, dtype=dt, device=device)
@@ -127,24 +170,67 @@ def build_cells(mat: sp.spmatrix, p_slots: int, dtype: torch.dtype,
         gcol=dev(gcol), gval=dev(gval, dtype), srow=dev(srow),
         spill_val=dev(s_val, dtype), spill_row=dev(s_row),
         spill_col=dev(s_col),
-        vbuf=torch.zeros((mb, rs * BLOCK), dtype=dtype, device=device),
-        shape=(mb * BLOCK, nb * BLOCK), p_slots=p_slots, pad_cnt=pad_cnt)
+        shape=(srow.shape[0] * BLOCK, gcol.shape[0] * BLOCK),
+        p_slots=p_slots, pad_cnt=pad_cnt)
+
+
+def build_table(mat: sp.spmatrix, p_slots: int, dtype: torch.dtype,
+                device=None) -> OneHotTable:
+    """One direction as the kernel's table on `device` (default CUDA),
+    values in `dtype`."""
+    device = resolve_device(device)
+    layout = cell_layout(mat, p_slots)
+    row_ptr, col, val = table_layout(layout, p_slots)
+    return OneHotTable(
+        row_ptr=torch.as_tensor(row_ptr, device=device),
+        col=torch.as_tensor(col, device=device),
+        val=torch.as_tensor(val, dtype=dtype, device=device),
+        shape=(layout[2].shape[0] * BLOCK, layout[0].shape[0] * BLOCK),
+        p_slots=p_slots, pad_cnt=layout[6])
 
 
 def gather_plain(gcol: torch.Tensor, gval: torch.Tensor,
                  x: torch.Tensor) -> torch.Tensor:
-    """The gather kernel's function in plain PyTorch."""
+    """The JAX package's gather kernel in plain PyTorch."""
     nb = gcol.shape[0]
     picked = torch.gather(x.view(nb, BLOCK), 1, gcol.view(nb, -1).long())
     return (gval.view(nb, -1) * picked).view(gcol.shape)
 
 
 def scatter_plain(srow: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """The scatter kernel's function in plain PyTorch."""
+    """The JAX package's scatter kernel in plain PyTorch."""
     mb = srow.shape[0]
     y = torch.zeros((mb, BLOCK), dtype=v.dtype, device=v.device)
     y.scatter_add_(1, srow.view(mb, -1).long(), v.view(mb, -1))
     return y.view(mb * BLOCK)
+
+
+def spmv_cells_plain(oc: OneHotCells, x: torch.Tensor) -> torch.Tensor:
+    """y = K x as the JAX package computes it (`_spmv_cells`): gather,
+    relayout j-major -> i-major into a zero-padded buffer, scatter,
+    spill."""
+    nb = oc.gcol.shape[0]
+    mb = oc.srow.shape[0]
+    p = oc.p_slots
+    u = gather_plain(oc.gcol, oc.gval, x)
+    u3 = u.view(nb, -1)[:, :mb * p].view(nb, mb, p)
+    v = torch.zeros((mb, oc.srow.shape[1] * BLOCK), dtype=u.dtype,
+                    device=u.device)
+    v[:, :nb * p].view(mb, nb, p).copy_(u3.permute(1, 0, 2))
+    y = scatter_plain(oc.srow, v.view(oc.srow.shape))
+    return y.index_add_(0, oc.spill_row,
+                        oc.spill_val * x.index_select(0, oc.spill_col))
+
+
+def onehot_spmv_plain(tab: OneHotTable, x: torch.Tensor) -> torch.Tensor:
+    """The kernel's function in plain PyTorch over the same table: a
+    gather of x, a multiply, `index_add_` into the rows."""
+    m = tab.shape[0]
+    rows = torch.repeat_interleave(
+        torch.arange(m, device=x.device), tab.row_ptr.diff(),
+        output_size=tab.col.shape[0])
+    y = torch.zeros(m, dtype=x.dtype, device=x.device)
+    return y.index_add_(0, rows, tab.val * x.index_select(0, tab.col))
 
 
 def _lib():
@@ -152,118 +238,52 @@ def _lib():
     if _LIB is None:
         from .cuda_build import load_library
         lib = load_library("onehot_spmv")
-        for fn in (lib.onehot_gather_f32, lib.onehot_gather_f64):
-            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [
-                ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-        for fn in (lib.onehot_scatter_f32, lib.onehot_scatter_f64):
-            fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [
-                ctypes.c_void_p]
+        for fn in (lib.onehot_spmv_f32, lib.onehot_spmv_f64):
+            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int,
+                                                   ctypes.c_void_p]
             fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB
 
 
-def _check_slots(name: str, index: torch.Tensor, values: torch.Tensor):
-    if index.dtype != torch.int32:
-        raise TypeError(f"{name}: the slot indices must be int32, not "
-                        f"{index.dtype}")
-    if values.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"{name}: the values must be float32 or float64, "
-                        f"not {values.dtype}")
-    if index.dim() != 3 or index.shape[2] != BLOCK or \
-            values.shape != index.shape:
-        raise ValueError(f"{name}: indices {tuple(index.shape)} and values "
-                         f"{tuple(values.shape)} must both be (blocks, "
-                         f"tiles, {BLOCK})")
-    if index.device != values.device:
-        raise ValueError(f"{name}: indices on {index.device}, values on "
-                         f"{values.device}")
-    if not (index.is_contiguous() and values.is_contiguous()):
-        raise ValueError(f"{name}: indices and values must be contiguous")
-
-
-def _fail_or_count(name: str, rc: int):
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
-    LAUNCHES[name] += 1
-
-
-def onehot_gather(gcol: torch.Tensor, gval: torch.Tensor,
-                  x: torch.Tensor) -> torch.Tensor:
-    """U[j, s] = gval[j, s] * x[128 j + gcol[j, s]], shaped as gcol.  A
-    CUDA tensor launches the kernel; a CPU tensor takes the plain
-    version."""
-    _check_slots("onehot_gather", gcol, gval)
-    nb = gcol.shape[0]
-    if x.dim() != 1 or x.shape[0] != nb * BLOCK:
-        raise ValueError(f"x of shape {tuple(x.shape)} does not match "
-                         f"{nb} column blocks")
-    if x.dtype != gval.dtype:
-        raise TypeError(f"x is {x.dtype}, the values {gval.dtype}")
-    if x.device != gval.device or not x.is_contiguous():
-        raise ValueError(f"x must be contiguous and on {gval.device}")
+def onehot_spmv(tab: OneHotTable, x: torch.Tensor) -> torch.Tensor:
+    """y = K x for one direction, a new vector of tab.shape[0].  A CUDA
+    tensor launches the kernel (one launch, no host sync, so a CUDA
+    graph can capture it); a CPU tensor takes the plain version.  The
+    table was checked when it was built; only x is checked here."""
+    if x.dim() != 1 or x.shape[0] != tab.shape[1]:
+        raise ValueError(f"x of shape {tuple(x.shape)} does not match a "
+                         f"one-hot operator of shape {tab.shape}")
+    if x.dtype != tab.val.dtype:
+        raise TypeError(f"x is {x.dtype}, the operator {tab.val.dtype}")
+    if x.device != tab.val.device or not x.is_contiguous():
+        raise ValueError(f"x must be contiguous and on {tab.val.device}, "
+                         f"not {x.device}")
     if x.device.type == "cpu":
-        return gather_plain(gcol, gval, x)
+        return onehot_spmv_plain(tab, x)
     if x.device.type != "cuda":
         raise ValueError(f"no one-hot kernel for device {x.device}")
     lib = _lib()
-    fn = (lib.onehot_gather_f32 if x.dtype == torch.float32
-          else lib.onehot_gather_f64)
-    u = torch.empty_like(gval)
-    slots = gcol.shape[1] * BLOCK
-    rc = fn(gcol.data_ptr(), gval.data_ptr(), x.data_ptr(), u.data_ptr(),
-            nb, slots, torch.cuda.current_stream(x.device).cuda_stream)
-    _fail_or_count("onehot_gather", rc)
-    return u
-
-
-def onehot_scatter(srow: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """y[128 i + l] = sum_s [srow[i, s] == l] v[i, s], a vector of
-    srow.shape[0] * 128.  A CUDA tensor launches the kernel; a CPU tensor
-    takes the plain version."""
-    _check_slots("onehot_scatter", srow, v)
-    if v.device.type == "cpu":
-        return scatter_plain(srow, v)
-    if v.device.type != "cuda":
-        raise ValueError(f"no one-hot kernel for device {v.device}")
-    lib = _lib()
-    fn = (lib.onehot_scatter_f32 if v.dtype == torch.float32
-          else lib.onehot_scatter_f64)
-    mb = srow.shape[0]
-    y = torch.empty(mb * BLOCK, dtype=v.dtype, device=v.device)
-    rc = fn(srow.data_ptr(), v.data_ptr(), y.data_ptr(), mb,
-            srow.shape[1] * BLOCK,
-            torch.cuda.current_stream(v.device).cuda_stream)
-    _fail_or_count("onehot_scatter", rc)
-    return y
-
-
-def spmv_cells(oc: OneHotCells, x: torch.Tensor, gather=onehot_gather,
-               scatter=onehot_scatter) -> torch.Tensor:
-    """y = K x for one direction: gather, relayout, scatter, spill.
-    `gather`/`scatter` default to the kernels' wrappers; the chip smoke
-    test passes the plain versions to time the plain product."""
-    nb = oc.gcol.shape[0]
-    mb = oc.srow.shape[0]
-    p = oc.p_slots
-    xd = x.to(oc.gval.dtype)
-    u = gather(oc.gcol, oc.gval, xd)
-    # j-major (nb, mb, p) -> i-major (mb, nb, p), lane padding left out
-    u3 = u.view(nb, -1)[:, :mb * p].view(nb, mb, p)
-    oc.vbuf[:, :nb * p].view(mb, nb, p).copy_(u3.permute(1, 0, 2))
-    y = scatter(oc.srow, oc.vbuf.view(oc.srow.shape))
-    if oc.spill_val.shape[0]:
-        y.index_add_(0, oc.spill_row,
-                     oc.spill_val * xd.index_select(0, oc.spill_col))
+    fn = lib.onehot_spmv_f32 if x.dtype == torch.float32 else \
+        lib.onehot_spmv_f64
+    m = tab.shape[0]
+    y = torch.empty(m, dtype=x.dtype, device=x.device)
+    # the pointers are read here, not kept in the table: a clone of the
+    # table (CUDA graph timing cycles through clones) has its own
+    rc = fn(tab.row_ptr.data_ptr(), tab.col.data_ptr(), tab.val.data_ptr(),
+            x.data_ptr(), y.data_ptr(), m,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"onehot_spmv launch failed: CUDA error {rc}")
+    LAUNCHES["onehot_spmv"] += 1
     return y
 
 
 class OneHotSpmv(NamedTuple):
-    """Bidirectional operator: K and K' in padded-cell layout."""
+    """Bidirectional operator: K and K' as the kernel's tables."""
 
-    fwd: OneHotCells
-    bwd: OneHotCells
+    fwd: OneHotTable
+    bwd: OneHotTable
 
     @property
     def shape(self):
@@ -271,13 +291,13 @@ class OneHotSpmv(NamedTuple):
 
     @property
     def dtype(self) -> torch.dtype:
-        return self.fwd.gval.dtype
+        return self.fwd.val.dtype
 
     def mv(self, x):
-        return spmv_cells(self.fwd, x)
+        return onehot_spmv(self.fwd, x)
 
     def rmv(self, y):
-        return spmv_cells(self.bwd, y)
+        return onehot_spmv(self.bwd, y)
 
 
 def choose_p(mat: sp.spmatrix) -> int:
@@ -301,5 +321,5 @@ def from_scipy_onehot(mat: sp.spmatrix, dtype=torch.float32,
     device = resolve_device(device)
     if p_slots is None:
         p_slots = choose_p(mat)
-    return OneHotSpmv(fwd=build_cells(mat, p_slots, dtype, device),
-                      bwd=build_cells(mat.T.tocsr(), p_slots, dtype, device))
+    return OneHotSpmv(fwd=build_table(mat, p_slots, dtype, device),
+                      bwd=build_table(mat.T.tocsr(), p_slots, dtype, device))
