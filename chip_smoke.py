@@ -47,7 +47,26 @@ Phases, each of which fails the run (non-zero exit) when it fails:
             tpu_matrix_format "onehot" (tolerance 1e-7): kOptimal, the
             same independent KKT check, the objective within 1e-6 of
             upstream HiGHS's, and the one-hot kernel launched at least
-            twice per PDLP iteration.
+            twice per PDLP iteration;
+9. ipm_dense  the synth LP 2,400 x 20,000 (seed 42) through `Highs().run()`
+            with the default options, which send it to the interior-point
+            solver's dense route: kOptimal in IPM iterations only, a dense
+            Cholesky of the normal matrix on the card in every iteration
+            and none on the CPU, the same independent KKT check (<= 1e-7),
+            the objective within 1e-6 of scipy's HiGHS
+            (`tools/ipm_anchors.py`);
+10. ipm_sparse the 240 x 240 grid min-cost flow (57,600 rows) the same
+            way, which the IPM solves by its sparse route (banded factor
+            on the card while its f32 probe holds, then SuperLU on the
+            host): kOptimal in IPM iterations only, an independent f64
+            check of L <= Ax <= U and l <= x <= u (<= 1e-7 relative), the
+            objective within 1e-6 of scipy's HiGHS IPM.  Both IPM phases
+            print their iterations and seconds, and per iteration the
+            normal-matrix product, the factorization, the solves and the
+            rest (host work and the elementwise chain); the dense one
+            the normal phase's full-GEMM f64 rate and the share of the
+            FP64 tensor peak its useful (symmetric) operations make, the
+            sparse one the banded factors run on the card.
 
 Kernel times (`ms`, `plain_ms`, `library_ms`) are device times with a
 cold L2, as the PDLP loop finds its operator (`tools/card.py`
@@ -81,6 +100,12 @@ SOURCES = ["block_csr_spmv", "onehot_spmv", "gather_probe"]
 # upstream HiGHS's hipdlp on synth50k: optimal at 6704.2920770 in
 # 47,080 iterations (bench.py:215-220, BENCH_DETAILS.json)
 SYNTH50K_OBJECTIVE = 6704.2920770
+# the IPM phases' LPs and scipy 1.17's HiGHS objectives for them
+# (python3 -m highs_tpu_torch.tools.ipm_anchors)
+IPM_DENSE_SHAPE = (2400, 20000)
+IPM_DENSE_OBJECTIVE = 402.6279984586837
+GRID_SIDE = 240
+IPM_SPARSE_OBJECTIVE = -1567218.130564652
 FORMATS = ["dense", "ell", "panelell", "bucketell", "bucketperm", "bcoo",
            "onehot"]
 FORMATS_ROWS = 4096
@@ -516,6 +541,134 @@ def solve_phase(name, a, b, c, upper, options, anchor, path_kernels,
     return launches, iters, seconds
 
 
+def feasibility_check(lp, sol):
+    """Relative f64 violation of L <= Ax <= U and l <= x <= u by the
+    returned x, from the LP's data alone, against 1 + the norm of the
+    finite row bounds."""
+    import numpy as np
+    x = np.asarray(sol.col_value, dtype=np.float64)
+    ax = lp.a_matrix.to_scipy() @ x
+
+    def excess(v, lo, up):
+        return (np.where(np.isfinite(lo), np.maximum(lo - v, 0.0), 0.0) +
+                np.where(np.isfinite(up), np.maximum(v - up, 0.0), 0.0))
+    rows = excess(ax, lp.row_lower, lp.row_upper)
+    cols = excess(x, lp.col_lower, lp.col_upper)
+    bounds = np.concatenate([lp.row_lower, lp.row_upper])
+    scale = 1.0 + np.linalg.norm(bounds[np.isfinite(bounds)])
+    return math.hypot(np.linalg.norm(rows), np.linalg.norm(cols)) / scale
+
+
+def ipm_phase(name, lp, anchor, check, device):
+    """One LP through `Highs().run()` with the default options, which
+    send it to the IPM: kOptimal in IPM iterations only, `check(sol)` <=
+    KKT_TOL, the objective within 1e-6 of `anchor`, the Newton phases per
+    iteration from the facade's clocks, and the factors by device."""
+    import highs_tpu_torch
+    from highs_tpu_torch.solvers.ipm import banded_chol, solver
+    from highs_tpu_torch.tools.card import FP64_TENSOR_FLOPS
+
+    h = highs_tpu_torch.Highs(device=device)
+    h.setOptionValue("time_limit", SOLVE_TIME_LIMIT)
+    h.passModel(lp)
+    dense0 = dict(solver.DENSE_FACTORS)
+    banded0 = dict(banded_chol.FACTORS)
+    t0 = time.perf_counter()
+    h.run()
+    sync(device)
+    seconds = time.perf_counter() - t0
+    dense = {k: solver.DENSE_FACTORS[k] - dense0[k] for k in dense0}
+    banded = {k: banded_chol.FACTORS[k] - banded0[k] for k in banded0}
+    status = h.getModelStatus()
+    info = h.getInfo()
+    iters = int(info.ipm_iteration_count)
+    rd = h.getRunData()
+    clocks = {k: h.getTimer().read(f"ipm_{k}") for k in
+              ("setup", "iterations", "normal", "factor", "solve")}
+    per_it = {k: 1e3 * clocks[k] / max(iters, 1)
+              for k in ("iterations", "normal", "factor", "solve")}
+    per_it["rest"] = per_it["iterations"] - per_it["normal"] - \
+        per_it["factor"] - per_it["solve"]
+    m, n = rd.presolved_model_num_row, rd.presolved_model_num_col
+    rec = dict(status=status.name, objective=h.getObjectiveValue(),
+               ipm_iterations=iters,
+               pdlp_iterations=int(info.pdlp_iteration_count),
+               seconds=seconds, presolve_s=rd.presolve_time,
+               solve_s=rd.solve_time, ipm_setup_s=clocks["setup"],
+               ipm_iterations_s=clocks["iterations"],
+               ms_per_iteration=per_it, presolved=[m, n],
+               dense_factors=dense, banded_factors=banded)
+    log(f"{name}: status {status.name} objective {rec['objective']!r} "
+        f"ipm_iterations {iters} pdlp_iterations "
+        f"{rec['pdlp_iterations']} seconds {seconds:.3f} presolve_s "
+        f"{rd.presolve_time:.3f} solve_s {rd.solve_time:.3f} "
+        f"(ipm setup {clocks['setup']:.3f}, iterations "
+        f"{clocks['iterations']:.3f}) presolved {m}x{n}")
+    log(f"{name}: ms per iteration: normal matrix {per_it['normal']:.3f} "
+        f"factor {per_it['factor']:.3f} solves {per_it['solve']:.3f} rest "
+        f"(host work and the elementwise chain) {per_it['rest']:.3f} of "
+        f"{per_it['iterations']:.3f}; dense factors {dense}, banded "
+        f"factors {banded} (by device)")
+    if dense["cuda"]:
+        # the normal phase (the weighted copy of K, the full f64 GEMM
+        # K Theta K' of 2 m^2 n operations, the diagonal add) read as a
+        # full-GEMM rate, and as the share of the FP64 tensor peak that
+        # the symmetric result's m^2 n useful operations make
+        flops = 2.0 * m * m * n
+        rate = flops / (per_it["normal"] * 1e-3)
+        useful = 0.5 * rate / FP64_TENSOR_FLOPS
+        rec.update(normal_full_gemm_tflops=rate / 1e12,
+                   normal_useful_fp64_share=useful)
+        log(f"{name}: normal phase (weighted copy, K Theta K', diagonal) "
+            f"at a full-GEMM rate of {rate / 1e12:.2f} TFLOP/s f64 "
+            f"({flops / 1e9:.1f} GFLOP per iteration); its m^2 n useful "
+            f"operations make {100 * useful:.1f}% of the FP64 tensor "
+            f"peak ({FP64_TENSOR_FLOPS / 1e12:.0f} TFLOP/s)")
+    if status != highs_tpu_torch.HighsModelStatus.kOptimal:
+        raise RuntimeError(f"{name}: status {status!r}, not kOptimal")
+    if iters <= 0 or rec["pdlp_iterations"] != -1:
+        raise RuntimeError(f"{name}: not solved by the IPM alone "
+                           f"({iters} IPM, {rec['pdlp_iterations']} PDLP "
+                           "iterations)")
+    rec["check"] = check(h.getSolution())
+    log(f"{name}: independent f64 check {rec['check']:.3e} (limit "
+        f"{KKT_TOL:g})")
+    if not rec["check"] <= KKT_TOL:
+        raise RuntimeError(f"{name}: the solution fails the check")
+    rec["rel_obj"] = abs(rec["objective"] - anchor) / abs(anchor)
+    log(f"{name}: scipy HiGHS objective {anchor!r}, rel diff "
+        f"{rec['rel_obj']:.3e}")
+    if not rec["rel_obj"] <= 1e-6:
+        raise RuntimeError(f"{name}: objective differs from scipy's HiGHS")
+    return rec
+
+
+def ipm_dense_phase(device):
+    import numpy as np
+    from highs_tpu_torch.utils.gen_synth_lp import UPPER, gen_synth_lp, \
+        synth_lp
+    m, n = IPM_DENSE_SHAPE
+    a, b, c = gen_synth_lp(m, n)
+    rec = ipm_phase(
+        "ipm_dense", synth_lp(m, n), IPM_DENSE_OBJECTIVE,
+        lambda sol: max(kkt_check(a, b, c, np.full(n, UPPER), sol)[:3]),
+        device)
+    if device.type == "cuda" and (
+            rec["dense_factors"]["cuda"] < rec["ipm_iterations"] or
+            rec["dense_factors"]["cpu"]):
+        raise RuntimeError(f"ipm_dense: dense factors {rec['dense_factors']}"
+                           f" for {rec['ipm_iterations']} iterations: the "
+                           "dense route did not run on the card alone")
+    return rec
+
+
+def ipm_sparse_phase(device):
+    from highs_tpu_torch.utils.gen_grid_flow_lp import grid_flow_lp
+    lp = grid_flow_lp(GRID_SIDE)
+    return ipm_phase("ipm_sparse", lp, IPM_SPARSE_OBJECTIVE,
+                     lambda sol: feasibility_check(lp, sol), device)
+
+
 def headline(records, launches, extra=None):
     """One kernel's line: the f32 records (the main path's type), the
     mean of its directions."""
@@ -604,6 +757,9 @@ def main() -> int:
         {"solver": "hipdlp", "tpu_matrix_format": "onehot"},
         SYNTH50K_OBJECTIVE, ["onehot_spmv"], device)
 
+    ipm = {"ipm_dense": run("ipm_dense", ipm_dense_phase, device),
+           "ipm_sparse": run("ipm_sparse", ipm_sparse_phase, device)}
+
     probe_head = [r for r in probe_records
                   if r["name"] == gather_probe.SHAPES[0][0]]
     lines = {
@@ -625,7 +781,7 @@ def main() -> int:
         {"name": name, "route": "cuda", "source": KERNELS[name][0],
          "replaces": KERNELS[name][1], **lines[name]}
         for name in ("block_csr_spmv", "onehot_spmv", "gather_probe")],
-        "formats": formats, "synth50k_seconds": oh_seconds,
+        "formats": formats, "synth50k_seconds": oh_seconds, "ipm": ipm,
         "phase_seconds": phase_s,
         "total_seconds": time.perf_counter() - t_start}
     log(json.dumps(summary))

@@ -11,6 +11,7 @@ from __future__ import annotations
 from typing import Mapping, Tuple
 
 import numpy as np
+import scipy.sparse as sp
 import torch
 
 from .constants import MatrixFormat, ObjSense
@@ -18,6 +19,7 @@ from .device import resolve_device
 from .models.lp import HighsLp, HighsSparseMatrix
 from .ops.block_csr import BLOCK, BlockCsr
 from .ops.linops import DenseMatrix, EllMatrix
+from .solvers.ipm.solver import IpmProblem, IpmState, sparse_k
 from .solvers.pdlp.pdhg import PdhgProblem, PdhgState, RestartCtl
 
 _LP_ARRAYS = ("col_cost", "col_lower", "col_upper", "row_lower",
@@ -120,3 +122,27 @@ def restart_ctl_from_numpy(d: Mapping, device=None) -> RestartCtl:
     fields["total_k"] = fields["total_k"].to(torch.int32)
     fields["n_restarts"] = fields["n_restarts"].to(torch.int32)
     return RestartCtl(**fields)
+
+
+def ipm_problem_from_numpy(d: Mapping, device=None) -> IpmProblem:
+    """IpmProblem from f64 arrays named as its fields; a scipy sparse `a`
+    becomes the sparse routes' K (`SparseK`), a dense one a tensor."""
+    device = resolve_device(device)
+    a = d["a"]
+    if sp.issparse(a):
+        a = sparse_k(a, device)
+    else:
+        a = torch.as_tensor(np.array(a), dtype=torch.float64, device=device)
+    return IpmProblem(a=a, **{
+        name: torch.as_tensor(np.array(d[name]), dtype=torch.float64,
+                              device=device)
+        for name in IpmProblem._fields if name != "a"})
+
+
+def ipm_state_from_numpy(d: Mapping, device=None) -> IpmState:
+    """IpmState from f64 arrays named as its fields."""
+    device = resolve_device(device)
+    return IpmState(**{
+        name: torch.as_tensor(np.array(d[name]), dtype=torch.float64,
+                              device=device)
+        for name in IpmState._fields})

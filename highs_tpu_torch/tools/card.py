@@ -17,6 +17,8 @@ import torch
 # kernels take
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
+# the FP64 tensor-core rate, which float64 matrix products (DGEMM) reach
+FP64_TENSOR_FLOPS = 67e12
 # the inputs and outputs a timing cycles through: four times the
 # H100's 50 MB L2, in at most MAX_COPIES clones of the inputs
 COLD_BYTES = 200 << 20

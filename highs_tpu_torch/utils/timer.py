@@ -3,10 +3,10 @@
 Equivalent of the reference HighsTimer (highs/util/HighsTimer.h): a
 registry of named clocks with start/stop/read/num-calls, nesting-safe,
 plus a report table like the per-layer clock sets (SimplexTimer,
-FactorTimer, MipTimer, HiPdlpTimer).  Python-side timing only — device
-kernels are profiled with the jax profiler; these clocks time the
-host-visible phases (presolve, solve dispatch, postsolve, IO) the way
-the reference's named clocks do.
+FactorTimer, MipTimer, HiPdlpTimer).  These clocks time the host-visible
+phases (presolve, solve dispatch, postsolve, IO) the way the reference's
+named clocks do; a solver may add its own phase times to them (the IPM's
+Newton phases, timed on the device by CUDA events).
 """
 from __future__ import annotations
 
@@ -61,6 +61,13 @@ class HighsTimer:
         c.total += time.perf_counter() - c._start
         c.num_calls += 1
         c._start = None
+
+    def add(self, name: str, seconds: float, calls: int = 1):
+        """Add time measured elsewhere (a solver's own phase clocks,
+        device events among them) to a clock."""
+        c = self._clocks.setdefault(name, _Clock(name))
+        c.total += seconds
+        c.num_calls += calls
 
     def read(self, name: str) -> float:
         c = self._clocks.get(name)

@@ -18,6 +18,11 @@ import highs_tpu_torch.options as torch_options
 from highs_tpu_torch import convert
 from highs_tpu_torch.device import resolve_device
 from highs_tpu_torch.ops import block_csr, linops, onehot_spmv
+from highs_tpu_torch.options import HighsOptions
+from highs_tpu_torch.solvers.icrash import run_icrash
+from highs_tpu_torch.solvers.ipm.banded_chol import BandedCholesky
+from highs_tpu_torch.solvers.ipm.solver import (IpmProblem, IpmState,
+                                                solve_lp_ipm_native)
 
 # the tests run in parallel worker processes on shared cores: torch's
 # own thread pool in each of them would oversubscribe the machine
@@ -38,6 +43,14 @@ def test_import_leaves_jax_and_highs_tpu_out():
         "import highs_tpu_torch.utils.gen_block_lp\n"
         "import highs_tpu_torch.utils.gen_synth_lp\n"
         "import highs_tpu_torch.tools.gather_probe\n"
+        "import highs_tpu_torch.tools.profile_ipm\n"
+        "import highs_tpu_torch.solvers.ipm.wrapper\n"
+        "import highs_tpu_torch.solvers.ipm.banded_chol\n"
+        "import highs_tpu_torch.solvers.ipm.sparse_ldl\n"
+        "import highs_tpu_torch.solvers.classify\n"
+        "import highs_tpu_torch.solvers.icrash\n"
+        "import highs_tpu_torch.solvers.simplex.dualize\n"
+        "import highs_tpu_torch.utils.gen_grid_flow_lp\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'highs_tpu' or m.startswith('highs_tpu.')]\n"
         "print(','.join(bad))\n")
@@ -98,6 +111,10 @@ def test_cuda_requested_without_card_raises(monkeypatch):
 
 
 _A = sp.random(256, 256, density=0.02, random_state=0, format="csr")
+_LP = convert.lp_from_numpy(dict(
+    num_col=2, num_row=1, col_cost=[1.0, 2.0], col_lower=[0.0, 0.0],
+    col_upper=[1.0, 1.0], row_lower=[1.0], row_upper=[np.inf],
+    a_start=[0, 1, 2], a_index=[0, 0], a_value=[1.0, 1.0]))
 
 # every public constructor of device objects, called without a device
 CONSTRUCTORS = {
@@ -129,6 +146,16 @@ CONSTRUCTORS = {
     "convert.restart_ctl_from_numpy": lambda: convert.restart_ctl_from_numpy(
         {f: np.zeros(()) for f in ("fpe_init", "fpe_last", "fresh",
                                    "total_k", "n_restarts")}),
+    "convert.ipm_problem_from_numpy": lambda: convert.ipm_problem_from_numpy(
+        {f: np.eye(2) if f == "a" else np.zeros(2)
+         for f in IpmProblem._fields}),
+    "convert.ipm_state_from_numpy": lambda: convert.ipm_state_from_numpy(
+        {f: np.zeros(2) for f in IpmState._fields}),
+    "banded_chol.BandedCholesky.from_spd":
+        lambda: BandedCholesky.from_spd(sp.identity(256, format="csr")),
+    "ipm.solver.solve_lp_ipm_native":
+        lambda: solve_lp_ipm_native(_LP, HighsOptions()),
+    "icrash.run_icrash": lambda: run_icrash(_LP, HighsOptions()),
 }
 
 
