@@ -66,7 +66,28 @@ Phases, each of which fails the run (non-zero exit) when it fails:
             rest (host work and the elementwise chain); the dense one
             the normal phase's full-GEMM f64 rate and the share of the
             FP64 tensor peak its useful (symmetric) operations make, the
-            sparse one the banded factors run on the card.
+            sparse one the banded factors run on the card;
+11. block64k_avg block64k through `Highs().run()` with solver "pdlp" (the
+            average-iterate engine) and every other option at its default
+            (block-CSR, an f32 cold round and f64 refinement): kOptimal,
+            the same independent KKT check, the objective within 1e-6 of
+            upstream HiGHS's, and at least two block-CSR launches per PDLP
+            iteration; it prints the iterations, restarts, seconds, wall
+            time per step and launches;
+12. batch    `solve_lp_batch` on 16 synth LPs (`gen_synth_lp(m, m, seed=s)`,
+            s = 0..15, m = 1,536 + 32 s: all pad to 2,048 x 2,048) with the
+            default options (f64 on the card): per instance kOptimal, the
+            independent KKT check and the objective within 1e-6 of scipy's
+            HiGHS (`tools/lp_anchors.py`, stored in `tools/lp_anchors.json`);
+            it prints each instance's iterations, blocks and seconds, and
+            the wall time per block against the byte floor of reading the
+            stacked dense K twice a step;
+13. simplex  the synth LP 1,500 x 1,500 through `Highs().run()` with the
+            default options, which send it to the native simplex on the
+            host: kOptimal, a valid basis, pivots counted, the KKT check and
+            scipy's objective; then ipm_dense's LP with solver "ipm" (the
+            IPM on the card, then crossover on the host): kOptimal, a valid
+            basis, the crossover's count reported, scipy's objective.
 
 Kernel times (`ms`, `plain_ms`, `library_ms`) are device times with a
 cold L2, as the PDLP loop finds its operator (`tools/card.py`
@@ -512,13 +533,19 @@ def solve_phase(name, a, b, c, upper, options, anchor, path_kernels,
     status = h.getModelStatus()
     rd = h.getRunData()
     iters = int(h.getInfo().pdlp_iteration_count)
+    timer = h.getTimer()
+    pdhg_s = timer.read("pdlp_round")
     log(f"{name}: status {status.name} objective {h.getObjectiveValue()!r} "
-        f"iterations {iters} seconds {seconds:.3f} "
-        f"iterations_per_s {iters / seconds:.1f} "
+        f"iterations {iters} restarts {timer.num_calls('pdlp_restart')} "
+        f"seconds {seconds:.3f} iterations_per_s {iters / seconds:.1f} "
         f"presolve_s {rd.presolve_time:.3f} solve_s {rd.solve_time:.3f} "
         f"postsolve_s {rd.postsolve_time:.3f} "
         f"presolved {rd.presolved_model_num_row}x"
         f"{rd.presolved_model_num_col} kernel_launches {launches}")
+    log(f"{name}: PDHG rounds {timer.num_calls('pdlp_round')} in "
+        f"{pdhg_s:.3f} s; wall per "
+        f"step {1e3 * pdhg_s / max(iters, 1):.4f} ms; launches per "
+        f"iteration {[round(v / max(iters, 1), 3) for v in launches.values()]}")
     if status != highs_tpu_torch.HighsModelStatus.kOptimal:
         raise RuntimeError(f"{name}: status {status!r}, not kOptimal")
     rel_p, rel_d, gap, pobj, dobj = kkt_check(a, b, c, upper,
@@ -669,6 +696,136 @@ def ipm_sparse_phase(device):
                      lambda sol: feasibility_check(lp, sol), device)
 
 
+def valid_basis(h, lp) -> bool:
+    """The facade's basis: valid, one status per column and row, and as
+    many basic variables as rows."""
+    from highs_tpu_torch.constants import HighsBasisStatus
+    basis = h.getBasis()
+    basic = sum(int(s) == int(HighsBasisStatus.kBasic)
+                for s in list(basis.col_status) + list(basis.row_status))
+    return bool(basis.valid and len(basis.col_status) == lp.num_col and
+                len(basis.row_status) == lp.num_row and basic == lp.num_row)
+
+
+def batch_phase(device):
+    """16 synth LPs through one vmapped batch on the card."""
+    import numpy as np
+    from highs_tpu_torch.options import HighsOptions
+    from highs_tpu_torch.solvers.pdlp.batch import solve_lp_batch
+    from highs_tpu_torch.solvers.pdlp.wrapper import _bucket
+    from highs_tpu_torch.tools import lp_anchors
+    from highs_tpu_torch.tools.card import HBM_BYTES_PER_S
+    from highs_tpu_torch.utils.gen_synth_lp import UPPER, gen_synth_lp, \
+        synth_lp
+
+    anchors = lp_anchors.load()["batch"]
+    seeds = list(lp_anchors.BATCH_SEEDS)
+    rows = [lp_anchors.batch_rows(s) for s in seeds]
+    lps = [synth_lp(m, m, seed=s) for m, s in zip(rows, seeds)]
+    m_pad = n_pad = _bucket(max(rows))
+    k_bytes = len(lps) * m_pad * n_pad * 8
+    floor_ms = 2 * k_bytes / HBM_BYTES_PER_S * 1e3
+    log(f"batch: {len(lps)} synth LPs of {rows[0]}..{rows[-1]} rows, padded "
+        f"to {m_pad} x {n_pad}; stacked dense K {k_bytes / 1e6:.1f} MB (f64), "
+        f"read twice a step: byte floor {floor_ms:.4f} ms a step")
+    blocks = []
+    t0 = time.perf_counter()
+
+    def on_block(msg):
+        sync(device)
+        blocks.append((time.perf_counter() - t0, int(msg.split()[2][:-1])))
+    results = solve_lp_batch(lps, HighsOptions(), log=on_block,
+                             device=device)
+    sync(device)
+    seconds = time.perf_counter() - t0
+    loop_s = blocks[-1][0] - blocks[0][0]
+    loop_steps = blocks[-1][1] - blocks[0][1]
+    log(f"batch: {len(blocks)} blocks, {blocks[-1][1]} steps, {seconds:.3f} "
+        f"s (setup to the first block's end {blocks[0][0]:.3f} s); after "
+        f"the first block {1e3 * loop_s / max(len(blocks) - 1, 1):.3f} ms a "
+        f"block, {1e3 * loop_s / max(loop_steps, 1):.4f} ms a step against "
+        f"the byte floor of {floor_ms:.4f}")
+    recs = []
+    for i, ((st, sol, info), m, s) in enumerate(zip(results, rows, seeds)):
+        a, b, c = gen_synth_lp(m, m, seed=s)
+        rel_p, rel_d, gap, pobj, _ = kkt_check(a, b, c, np.full(m, UPPER),
+                                               sol)
+        done_block = next(j for j, (_, tot) in enumerate(blocks)
+                          if tot >= info.iterations)
+        rel_obj = abs(pobj - anchors[i]) / abs(anchors[i])
+        rec = dict(seed=s, rows=m, status=st.name,
+                   iterations=info.iterations, blocks=done_block + 1,
+                   seconds=blocks[done_block][0], objective=pobj,
+                   kkt=max(rel_p, rel_d, gap), rel_obj=rel_obj)
+        log(f"batch {i}: {m} x {m} {st.name} iterations {info.iterations} "
+            f"blocks {rec['blocks']} seconds {rec['seconds']:.3f} objective "
+            f"{pobj!r} (scipy {anchors[i]!r}, rel {rel_obj:.3e}) KKT "
+            f"{rec['kkt']:.3e}")
+        recs.append(rec)
+        if st != st.kOptimal or not rec["kkt"] <= KKT_TOL or \
+                not rel_obj <= 1e-6:
+            raise RuntimeError(f"batch instance {i}: {rec}")
+    return dict(instances=recs, seconds=seconds, blocks=len(blocks),
+                steps=blocks[-1][1], padded=[m_pad, n_pad],
+                byte_floor_ms_per_step=floor_ms,
+                ms_per_step=1e3 * loop_s / max(loop_steps, 1))
+
+
+def simplex_phase(device):
+    """`choose` on a small LP (native simplex on the host) and the IPM
+    with crossover on ipm_dense's LP."""
+    import numpy as np
+    import highs_tpu_torch
+    from highs_tpu_torch.tools import lp_anchors
+    from highs_tpu_torch.utils.gen_synth_lp import UPPER, gen_synth_lp, \
+        synth_lp
+
+    out = {}
+    m, n = lp_anchors.SIMPLEX_SHAPE
+    for name, lp, opts, anchor, (a, b, c) in (
+            ("simplex_choose", synth_lp(m, n), {},
+             lp_anchors.load()["simplex"], gen_synth_lp(m, n)),
+            ("ipm_crossover", synth_lp(*IPM_DENSE_SHAPE), {"solver": "ipm"},
+             IPM_DENSE_OBJECTIVE, gen_synth_lp(*IPM_DENSE_SHAPE))):
+        h = highs_tpu_torch.Highs(device=device)
+        h.setOptionValue("time_limit", SOLVE_TIME_LIMIT)
+        for key, val in opts.items():
+            h.setOptionValue(key, val)
+        h.passModel(lp)
+        t0 = time.perf_counter()
+        h.run()
+        sync(device)
+        seconds = time.perf_counter() - t0
+        info = h.getInfo()
+        status = h.getModelStatus()
+        rel_p, rel_d, gap, pobj, _ = kkt_check(
+            a, b, c, np.full(lp.num_col, UPPER), h.getSolution())
+        rec = dict(status=status.name, seconds=seconds,
+                   simplex_iterations=int(info.simplex_iteration_count),
+                   ipm_iterations=int(info.ipm_iteration_count),
+                   crossover_iterations=int(info.crossover_iteration_count),
+                   pdlp_iterations=int(info.pdlp_iteration_count),
+                   valid_basis=valid_basis(h, lp), objective=pobj,
+                   kkt=max(rel_p, rel_d, gap),
+                   rel_obj=abs(pobj - anchor) / abs(anchor))
+        log(f"{name}: {lp.num_row} x {lp.num_col} {status.name} seconds "
+            f"{seconds:.3f} simplex_iterations {rec['simplex_iterations']} "
+            f"ipm_iterations {rec['ipm_iterations']} crossover_iterations "
+            f"{rec['crossover_iterations']} pdlp_iterations "
+            f"{rec['pdlp_iterations']} valid_basis {rec['valid_basis']} "
+            f"objective {pobj!r} (scipy {anchor!r}, rel {rec['rel_obj']:.3e})"
+            f" KKT {rec['kkt']:.3e}")
+        solved_by = (rec["simplex_iterations"] > 0 if not opts else
+                     rec["ipm_iterations"] > 0 and
+                     rec["crossover_iterations"] >= 0)
+        if status != highs_tpu_torch.HighsModelStatus.kOptimal or \
+                not rec["valid_basis"] or not solved_by or \
+                not rec["kkt"] <= KKT_TOL or not rec["rel_obj"] <= 1e-6:
+            raise RuntimeError(f"{name}: {rec}")
+        out[name] = rec
+    return out
+
+
 def headline(records, launches, extra=None):
     """One kernel's line: the f32 records (the main path's type), the
     mean of its directions."""
@@ -759,13 +916,22 @@ def main() -> int:
 
     ipm = {"ipm_dense": run("ipm_dense", ipm_dense_phase, device),
            "ipm_sparse": run("ipm_sparse", ipm_sparse_phase, device)}
+    avg_launches, avg_iters, avg_seconds = run(
+        "block64k_avg", solve_phase, "block64k_avg", a64, b64, c64,
+        np.full(a64.shape[1], UPPER), {"solver": "pdlp"}, block64k_anchor,
+        ["block_csr_spmv"], device)
+    batch = run("batch", batch_phase, device)
+    simplex = run("simplex", simplex_phase, device)
 
     probe_head = [r for r in probe_records
                   if r["name"] == gather_probe.SHAPES[0][0]]
     lines = {
         "block_csr_spmv": headline(
             bc_records, bc_launches["block_csr_spmv"],
-            {"path": "block64k", "pdlp_iterations": bc_iters}),
+            {"path": "block64k", "pdlp_iterations": bc_iters,
+             "paths": {"block64k": bc_launches["block_csr_spmv"],
+                       "block64k_avg": avg_launches["block_csr_spmv"]},
+             "block64k_avg_pdlp_iterations": avg_iters}),
         "gather_probe": headline(
             probe_head, 0,
             {"path": None, "shape": gather_probe.SHAPES[0][0],
@@ -782,6 +948,8 @@ def main() -> int:
          "replaces": KERNELS[name][1], **lines[name]}
         for name in ("block_csr_spmv", "onehot_spmv", "gather_probe")],
         "formats": formats, "synth50k_seconds": oh_seconds, "ipm": ipm,
+        "block64k_avg_seconds": avg_seconds, "batch": batch,
+        "simplex": simplex,
         "phase_seconds": phase_s,
         "total_seconds": time.perf_counter() - t_start}
     log(json.dumps(summary))

@@ -8,7 +8,7 @@ device it is given, CUDA by default (`device.resolve_device`).
 """
 from __future__ import annotations
 
-from typing import Mapping, Tuple
+from typing import Mapping, Sequence, Tuple
 
 import numpy as np
 import scipy.sparse as sp
@@ -111,6 +111,48 @@ def pdhg_state_from_numpy(d: Mapping, device=None) -> PdhgState:
               for name in PdhgState._fields}
     fields["k"] = fields["k"].to(torch.int32)
     return PdhgState(**fields)
+
+
+def pdhg_avg_state_from_numpy(d: Mapping, k_op, device=None) -> PdhgState:
+    """The average-iterate engine's state from its numpy data: the
+    current iterate `x`, `y` (also the last PDHG iterate), the running
+    sums `x_sum`, `y_sum` of the `k` iterates since the last restart,
+    `eta` and `omega`; K'y is computed with `k_op`."""
+    device = resolve_device(device)
+
+    def dev(a):
+        return torch.as_tensor(np.array(a), device=device)
+    x, y = dev(d["x"]), dev(d["y"])
+    return PdhgState(
+        x=x, y=y, x_pd=x, y_pd=y, x_anchor=dev(d["x_sum"]),
+        y_anchor=dev(d["y_sum"]), aty=k_op.rmv(y),
+        k=torch.as_tensor(int(d["k"]), dtype=torch.int32, device=device),
+        eta=dev(d["eta"]), omega=dev(d["omega"]))
+
+
+def pdhg_batch_problem_from_numpy(ds: Sequence[Mapping],
+                                  device=None) -> PdhgProblem:
+    """A batched PdhgProblem (leading batch dimension on every field)
+    from one dict per instance: a dense `a` of the common padded shape
+    and the vector fields, named as PdhgProblem's."""
+    device = resolve_device(device)
+
+    def stack(name):
+        return torch.as_tensor(np.stack([np.array(d[name]) for d in ds]),
+                               device=device)
+    return PdhgProblem(
+        k_op=DenseMatrix(stack("a")),
+        **{name: stack(name) for name in PdhgProblem._fields
+           if name not in ("k_op", "y_lo")})
+
+
+def pdhg_batch_state_from_numpy(ds: Sequence[Mapping],
+                                device=None) -> PdhgState:
+    """A batched PdhgState from one dict per instance (fields named as
+    PdhgState's)."""
+    return pdhg_state_from_numpy(
+        {name: np.stack([np.array(d[name]) for d in ds])
+         for name in PdhgState._fields}, device=device)
 
 
 def restart_ctl_from_numpy(d: Mapping, device=None) -> RestartCtl:

@@ -3,9 +3,10 @@
 Equivalent of the reference `class Highs` (highs/Highs.h:43,
 lp_data/Highs.cpp): pass/read a model, set options, `run()`, query
 solution / info / status.  `run()` solves an LP through presolve and the
-LP dispatch on the torch device given to the constructor (default CUDA).
-MIP and QP models, `.lp` files and the model-editing and analysis
-methods of the JAX package's facade are not ported yet.
+LP dispatch on the torch device given to the constructor (default CUDA);
+the simplex and crossover run on the host.  MIP and QP models, `.lp`
+files and the model-editing and analysis methods of the JAX package's
+facade are not ported yet.
 """
 from __future__ import annotations
 
@@ -119,6 +120,9 @@ class Highs:
     def getSolution(self) -> HighsSolution:
         return self._solution
 
+    def getBasis(self) -> HighsBasis:
+        return self._basis
+
     def getInfo(self) -> HighsInfo:
         return self._info
 
@@ -142,6 +146,20 @@ class Highs:
 
     def setLogCallback(self, callback) -> HighsStatus:
         self._log_callback = callback
+        return HighsStatus.kOk
+
+    # ------------------------------------------------------------------
+    # Warm start
+    # ------------------------------------------------------------------
+    def setSolution(self, solution: HighsSolution) -> HighsStatus:
+        self._solution = solution
+        return HighsStatus.kOk
+
+    def setBasis(self, basis: Optional[HighsBasis] = None) -> HighsStatus:
+        if basis is None:
+            self._basis = HighsBasis()
+        else:
+            self._basis = basis
         return HighsStatus.kOk
 
     def _log(self, msg: str, log_type=None):
@@ -274,7 +292,8 @@ class Highs:
         self._info.valid = True
         for attr in ("simplex_iteration_count", "ipm_iteration_count",
                      "crossover_iteration_count", "pdlp_iteration_count"):
-            setattr(self._info, attr, getattr(lp_info, attr))
+            if hasattr(lp_info, attr):
+                setattr(self._info, attr, getattr(lp_info, attr))
         if self._solution.value_valid:
             rep = compute_kkt(
                 lp, self._solution,
@@ -305,3 +324,21 @@ class Highs:
         self._info.basis_validity = int(
             BasisValidity.kBasisValidityValid if self._basis.valid
             else BasisValidity.kBasisValidityInvalid)
+
+    # ------------------------------------------------------------------
+    # Crossover
+    # ------------------------------------------------------------------
+    def crossover(self, user_solution: HighsSolution) -> HighsStatus:
+        """Convert a (near-optimal) solution into a vertex basis via the
+        simplex cleanup on the host (reference Highs::crossover)."""
+        from .solvers.simplex.crossover import crossover_from_solution
+        status, solution, info = crossover_from_solution(
+            self._model.lp, self._options, user_solution)
+        if status != HighsModelStatus.kOptimal:
+            return HighsStatus.kError
+        self._model_status = status
+        self._solution = solution
+        if info.basis is not None:
+            self._basis = info.basis
+        self._fill_info_lp(self._model.lp, info)
+        return HighsStatus.kOk

@@ -7,13 +7,14 @@ postsolves.  Solver strings follow the reference
 (HighsOptions.h:274-280): "simplex" / "choose" / "ipm" / "ipx" / "hipo" /
 "pdlp" / "hipdlp" / "qpasm".
 
-This package has the interior-point solver ("ipm" / "ipx" / "hipo", and
-"choose" on an LP in the IPM's range, with the classification of an
-inconclusive IPM result and PDLP after it) and the reflected-Halpern
-PDLP engine ("hipdlp", and "choose" on a large LP).  The selection rule
-is the JAX package's; a branch whose solver is not ported yet (simplex,
-crossover) raises NotImplementedError naming its ROADMAP item when it
-is reached.
+Every LP solver of the JAX package is here, with its selection rule:
+the native simplex on the host ("simplex", and "choose" first on a small
+or very sparse LP), the interior-point solver on the device ("ipm" /
+"ipx" / "hipo", then crossover to a vertex basis on an LP of at most
+3,000 rows; "choose" on an LP in its range, with the classification of
+an inconclusive result and PDLP after it), and the two PDLP engines on
+the device ("pdlp": average-iterate; "hipdlp", and "choose" on a large
+LP: reflected-Halpern).
 """
 from __future__ import annotations
 
@@ -32,11 +33,8 @@ from .classify import classify_inconclusive
 from .icrash import run_icrash
 from .ipm.wrapper import solve_lp_ipm
 from .pdlp.wrapper import solve_lp_pdlp
-
-
-def not_yet_ported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not yet ported (ROADMAP queue 1 item {item})")
+from .simplex.crossover import crossover_from_solution
+from .simplex.wrapper import solve_lp_simplex
 
 
 @dataclasses.dataclass
@@ -123,10 +121,18 @@ def solve_lp(lp: HighsLp, options: HighsOptions, log=None,
     info.iterations = raw_info.iterations
     info.solve_time = raw_info.solve_time
     ipm_iters = getattr(raw_info, "ipm_iterations", -1)
-    if ipm_iters > 0:
+    simplex_iters = getattr(raw_info, "simplex_iterations", -1)
+    crossover_iters = getattr(raw_info, "crossover_iterations", -1)
+    if crossover_iters >= 0:
+        info.crossover_iteration_count = crossover_iters
+        info.ipm_iteration_count = ipm_iters
+    elif simplex_iters > 0:
+        info.simplex_iteration_count = simplex_iters
+    elif ipm_iters > 0:
         info.ipm_iteration_count = ipm_iters
     else:
         info.pdlp_iteration_count = raw_info.iterations
+    info.basis = getattr(raw_info, "basis", None)
 
     if postsolve_stack is not None and solution.value_valid:
         from ..presolve.presolve import postsolve_lp
@@ -158,16 +164,22 @@ def _solve_core(lp: HighsLp, options: HighsOptions, solver: str, log,
         len(warm_solution.row_dual) == lp.num_row) else None
 
     if solver in ("ipm", "ipx", "hipo"):
-        if options.run_crossover == "on" and lp.num_row <= 3000:
-            # the JAX package runs crossover to a vertex basis after an
-            # optimal IPM solve of such an LP (run_crossover default "on")
-            raise not_yet_ported(
-                f"crossover after LP solver {solver!r} (run_crossover "
-                "'on' on an LP of at most 3,000 rows); set run_crossover="
-                "'off' to return the interior solution", 4)
-        return solve_lp_ipm(lp, options, log=log, device=device)
+        status, solution, raw = solve_lp_ipm(lp, options, log=log,
+                                             device=device)
+        if status == HighsModelStatus.kOptimal and \
+                options.run_crossover == "on" and lp.num_row <= 3000:
+            # reference behavior: IPM runs crossover to a vertex basis by
+            # default (run_crossover default "on", IpxWrapper)
+            st2, sol2, info2 = crossover_from_solution(lp, options,
+                                                       solution)
+            if st2 == HighsModelStatus.kOptimal:
+                info2.ipm_iterations = raw.iterations
+                info2.crossover_iterations = info2.iterations
+                return st2, sol2, info2
+        return status, solution, raw
     if solver == "simplex":
-        raise not_yet_ported("LP solver 'simplex'", 4)
+        return solve_lp_simplex(lp, options, log=log, basis=basis,
+                                device=device)
 
     # IPM capacity model (not a dense cap): small problems factor the
     # normal matrix dense; mid-to-large sparse problems use the sparse
@@ -182,11 +194,17 @@ def _solve_core(lp: HighsLp, options: HighsOptions, solver: str, log,
     if solver == "choose" and (
             lp.num_row <= 1500 or
             (lp.num_row <= 20000 and _nnz <= 120_000)):
-        # small or very sparse problems go to the native simplex first
-        raise not_yet_ported(
-            "solver 'choose' on a small or very sparse LP (simplex "
-            "first); set solver='hipdlp', or solver='ipm' with "
-            "run_crossover='off', to solve it", 4)
+        # small or very sparse problems: the native simplex gives an
+        # exact vertex solution with a basis fastest (the reference's
+        # default LP solver is simplex too); when it cannot conclude,
+        # the IPM gate below takes over
+        status, solution, info = solve_lp_simplex(
+            lp, options, log=log, basis=basis, device=device)
+        if status in (HighsModelStatus.kOptimal,
+                      HighsModelStatus.kInfeasible,
+                      HighsModelStatus.kUnbounded,
+                      HighsModelStatus.kInterrupt):
+            return status, solution, info
     if solver == "choose" and ipm_ok:
         # "choose": the high-accuracy IPM first where its normal
         # equations fit; PDLP after it when it cannot conclude.  (The JAX
@@ -212,7 +230,7 @@ def _solve_core(lp: HighsLp, options: HighsOptions, solver: str, log,
             return verdict, HighsSolution(), info
         return solve_lp_pdlp(lp, options, x0=x0, y0=y0, device=device)
 
-    # hipdlp / large "choose" -> PDHG workhorse
+    # pdlp / hipdlp / large "choose" -> PDHG workhorse
     if _deadline_exceeded(options):
         return (HighsModelStatus.kTimeLimit, HighsSolution(),
                 _TimeoutInfo())

@@ -8,52 +8,21 @@ iterations, so `SparseLdl` analyzes once (minimum-degree ordering +
 elimination tree + symbolic L) and refactors numerically per
 iteration.
 
-The library is the repository's `native/libhipm.so`, loaded as it is
-and never rebuilt in place.  Where it is missing, or cannot be loaded
-on this machine, `native/hipm.cpp` is compiled with g++ into
-`highs_tpu_torch/_build/` (the file name carries a hash of the source).
+The library is the repository's `native/libhipm.so`, loaded by
+`solvers/native_lib.py` as it is, or built from `native/hipm.cpp` into
+`highs_tpu_torch/_build/` where it will not load.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import pathlib
-import subprocess
 
 import numpy as np
 import scipy.sparse as sp
 
-REPO_DIR = pathlib.Path(__file__).resolve().parents[3]
-NATIVE_LIB = REPO_DIR / "native" / "libhipm.so"
-NATIVE_SRC = REPO_DIR / "native" / "hipm.cpp"
-BUILD_DIR = REPO_DIR / "highs_tpu_torch" / "_build"
-
-_LIB = None
+from .. import native_lib
 
 
-def _built_lib() -> pathlib.Path:
-    """Compile native/hipm.cpp into the build folder (once per source)."""
-    digest = hashlib.sha256(NATIVE_SRC.read_bytes()).hexdigest()[:12]
-    out = BUILD_DIR / f"libhipm-{digest}.so"
-    if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        subprocess.run(["g++", "-O3", "-fPIC", "-shared", "-std=c++17",
-                        str(NATIVE_SRC), "-o", str(tmp)],
-                       check=True, capture_output=True)
-        os.replace(tmp, out)
-    return out
-
-
-def get_lib():
-    global _LIB
-    if _LIB is not None:
-        return _LIB
-    try:
-        lib = ctypes.CDLL(str(NATIVE_LIB))
-    except OSError:  # missing, or built for another machine
-        lib = ctypes.CDLL(str(_built_lib()))
+def _declare(lib):
     i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
     i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
     f64p = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
@@ -78,8 +47,10 @@ def get_lib():
     lib.hx_ldl_n_reg.argtypes = [ctypes.c_void_p]
     lib.hx_ldl_destroy.restype = None
     lib.hx_ldl_destroy.argtypes = [ctypes.c_void_p]
-    _LIB = lib
-    return lib
+
+
+def get_lib():
+    return native_lib.load("hipm", ["hipm.cpp"], _declare, flags=("-O3",))
 
 
 class LdlBlowup(RuntimeError):

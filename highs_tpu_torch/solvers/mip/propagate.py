@@ -59,8 +59,9 @@ class Propagator:
         # ~50x faster there (reference analogue: HighsDomain is C++)
         self._native = None
         try:
-            from ..simplex import native as _nat
-            _nat.get_lib()
+            # ImportError until the MIP slice binds hx_propagate
+            from ..simplex.native import get_lib, propagate_native
+            get_lib()
             self._rp = np.ascontiguousarray(self.a.indptr,
                                             dtype=np.int64)
             self._ri = np.ascontiguousarray(self.a.indices,
@@ -75,7 +76,7 @@ class Propagator:
                 self.row_upper, nan=kb, posinf=kb, neginf=-kb),
                 -kb, kb)
             self._int8 = self.is_integer.astype(np.int8)
-            self._native = _nat
+            self._native = propagate_native
         except Exception:
             self._native = None
 
@@ -93,7 +94,7 @@ class Propagator:
                                          neginf=-kb), -kb, kb)
             up_c = np.clip(np.nan_to_num(up, nan=kb, posinf=kb,
                                          neginf=-kb), -kb, kb)
-            ok, lo_n, up_n = self._native.propagate_native(
+            ok, lo_n, up_n = self._native(
                 self._rp, self._ri, self._rx, self._rl_clip,
                 self._ru_clip, self._int8, lo_c, up_c,
                 feastol=self.feastol, max_rounds=max_rounds,

@@ -1,0 +1,281 @@
+"""Batched PDHG: solve many LP instances in one device program.
+
+Each instance is preprocessed and scaled on the host, padded to the
+batch's common bucket shape (padding is an exact no-op for the
+iteration, see wrapper.py), stacked along a leading batch dimension
+(K dense per instance, (b, m_pad, n_pad)) and advanced by the
+single-instance 40-step restart windows under `torch.func.vmap`.  vmap,
+as `jax.vmap` in the JAX package, gives every instance its own
+reductions (norms, dot products, the restart check), so no instance can
+leak into another's scalars, and the single-instance code the Halpern
+path runs stays as it is.  The host loop keeps per-instance termination
+state; finished instances are frozen by zeroing their step size, and
+each reports the iterate (and restart count) its convergence check
+passed, where the JAX package reports the frozen instance's iterate at
+the end of the whole batch (ROADMAP, "Decisions of the port").
+"""
+from __future__ import annotations
+
+import time
+from typing import List, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ...constants import HighsModelStatus
+from ...device import resolve_device
+from ...models.lp import HighsLp
+from ...models.solution import HighsSolution
+from ...ops.linops import DenseMatrix
+from ...options import HighsOptions
+from .pdhg import (PdhgMetrics, PdhgProblem, PdhgState, RestartCtl,
+                   pdhg_block_windows, power_method)
+from .preprocess import preprocess_lp, recover_solution
+from .scaling import scale_problem
+from .wrapper import PdlpRunInfo, _bucket
+
+_VECTORS = tuple(f for f in PdhgProblem._fields if f not in ("k_op", "y_lo"))
+
+
+def resolve_batch_dtype(options: HighsOptions) -> str:
+    """tpu_dtype 'choose' for the batch: float64 on every device.  A
+    CUDA card has native FP64 and the batch has no f32 -> f64 refinement
+    (in f32 the JAX package's batch stalls at its iteration limit on
+    generated LPs); an explicit setting is kept."""
+    if options.tpu_dtype != "choose":
+        return options.tpu_dtype
+    return "float64"
+
+
+def batched_pdhg_windows(problem: PdhgProblem, state: PdhgState,
+                         ctl: RestartCtl, n_windows: int, gamma: float,
+                         interval: int, theta: torch.Tensor):
+    """The single-instance restart windows (pdhg.pdhg_block_windows),
+    vmapped over the leading batch dimension of a dense-K problem, its
+    state and its restart control."""
+    def one(k_a, vecs, state, ctl):
+        prob = PdhgProblem(k_op=DenseMatrix(k_a), **vecs)
+        return pdhg_block_windows(prob, state, ctl, n_windows, gamma,
+                                  interval, theta)
+    vecs = {f: getattr(problem, f) for f in _VECTORS}
+    return torch.func.vmap(one)(problem.k_op.a, vecs, state, ctl)
+
+
+def batched_restart(state: PdhgState, flags: torch.Tensor,
+                    omegas: torch.Tensor) -> PdhgState:
+    """Reset the Halpern anchor for flagged instances only."""
+    f = flags[:, None]
+    return state._replace(
+        x=torch.where(f, state.x_pd, state.x),
+        y=torch.where(f, state.y_pd, state.y),
+        x_anchor=torch.where(f, state.x_pd, state.x_anchor),
+        y_anchor=torch.where(f, state.y_pd, state.y_anchor),
+        k=torch.where(flags, 0, state.k),
+        omega=torch.where(flags, omegas, state.omega))
+
+
+def freeze_instances(state: PdhgState, frozen: torch.Tensor) -> PdhgState:
+    """Stop finished instances: zero step size AND re-anchor at the
+    current iterate so that the Halpern blend becomes the identity."""
+    f = frozen[:, None]
+    return state._replace(
+        eta=torch.where(frozen, 0.0, state.eta),
+        x_anchor=torch.where(f, state.x, state.x_anchor),
+        y_anchor=torch.where(f, state.y, state.y_anchor))
+
+
+def _instance_arrays(std, options, n_pad, m_pad, np_dtype):
+    """One instance's scaled, padded problem as numpy arrays (dense K)
+    and its scale factors (dr, dc)."""
+    scaled_a, sc = scale_problem(
+        std.a, mode=options.pdlp_scaling_mode,
+        ruiz_iterations=options.pdlp_ruiz_iterations)
+    dr, dc = sc.row_scale, sc.col_scale
+    n_std, m_std = std.num_col, std.num_row
+
+    def padc(v, fill):
+        return np.concatenate(
+            [v, np.full(n_pad - n_std, fill, dtype=np.float64)])
+
+    def padr(v, fill):
+        return np.concatenate(
+            [v, np.full(m_pad - m_std, fill, dtype=np.float64)])
+
+    a_dense = np.zeros((m_pad, n_pad))
+    a_dense[:m_std, :n_std] = scaled_a.toarray()
+    with np.errstate(invalid="ignore"):
+        lo_s = np.where(np.isfinite(std.col_lower), std.col_lower / dc,
+                        std.col_lower)
+        up_s = np.where(np.isfinite(std.col_upper), std.col_upper / dc,
+                        std.col_upper)
+    big = np.finfo(np_dtype).max / 4
+    arrays = dict(
+        a=a_dense,
+        b=padr(dr * std.b, 0.0),
+        c=padc(dc * std.c, 0.0),
+        lo=padc(np.where(np.isfinite(lo_s), lo_s, -big), 0.0),
+        up=padc(np.where(np.isfinite(up_s), up_s, big), 0.0),
+        is_eq=padr((np.arange(m_std) < std.num_eq).astype(float), 1.0),
+        lo_fin=padc(np.isfinite(std.col_lower).astype(float), 1.0),
+        up_fin=padc(np.isfinite(std.col_upper).astype(float), 1.0),
+        inv_row_scale=padr(1.0 / dr, 1.0),
+        inv_col_scale=padc(1.0 / dc, 1.0),
+        norm_b=np.linalg.norm(std.b),
+        norm_c=np.linalg.norm(std.c))
+    return arrays, (dr, dc)
+
+
+def solve_lp_batch(lps: Sequence[HighsLp], options: HighsOptions,
+                   log=None, device=None
+                   ) -> List[Tuple[HighsModelStatus, HighsSolution,
+                                   PdlpRunInfo]]:
+    """Solve a batch of LPs with one vmapped PDHG program on `device`
+    (default CUDA)."""
+    device = resolve_device(device)
+    t_start = time.perf_counter()
+    b = len(lps)
+    dtype_name = resolve_batch_dtype(options)
+    dtype = torch.float64 if dtype_name == "float64" else torch.float32
+    np_dtype = np.float64 if dtype == torch.float64 else np.float32
+
+    stds = [preprocess_lp(lp) for lp in lps]
+    n_pad = _bucket(max(s.num_col for s in stds))
+    m_pad = _bucket(max(s.num_row for s in stds))
+
+    per_instance = [_instance_arrays(std, options, n_pad, m_pad, np_dtype)
+                    for std in stds]
+    scales = [sc for _, sc in per_instance]
+
+    def stacked(name):
+        return torch.as_tensor(
+            np.stack([arr[name] for arr, _ in per_instance]).astype(np_dtype),
+            device=device)
+    problem = PdhgProblem(k_op=DenseMatrix(stacked("a")),
+                          **{name: stacked(name) for name in _VECTORS})
+
+    # per-instance step sizes from the vmapped power method
+    norm_k = torch.func.vmap(
+        lambda a: power_method(DenseMatrix(a), n_pad, 30, dtype, device))(
+            problem.k_op.a)
+    eta0 = 0.998 / np.maximum(norm_k.cpu().double().numpy(), 1e-12)
+    # the norms as the device holds them (rounded to the solve's dtype)
+    norms_b = problem.norm_b.cpu().double().numpy()
+    norms_c = problem.norm_c.cpu().double().numpy()
+    omega0 = np.where((norms_b > 1e-12) & (norms_c > 1e-12),
+                      norms_c / np.maximum(norms_b, 1e-12), 1.0)
+
+    zeros_n = torch.zeros((b, n_pad), dtype=dtype, device=device)
+    zeros_m = torch.zeros((b, m_pad), dtype=dtype, device=device)
+    x0 = torch.minimum(torch.maximum(zeros_n, problem.lo), problem.up)
+    state = PdhgState(
+        x=x0, y=zeros_m, x_pd=x0, y_pd=zeros_m,
+        x_anchor=x0, y_anchor=zeros_m, aty=zeros_n,
+        k=torch.zeros((b,), dtype=torch.int32, device=device),
+        eta=torch.as_tensor(eta0, dtype=dtype, device=device),
+        omega=torch.as_tensor(omega0, dtype=dtype, device=device))
+
+    eps = options.pdlp_optimality_tolerance
+    check = options.tpu_check_interval
+    iter_limit = min(options.pdlp_iteration_limit, 10**7)
+    offsets = np.array([s.offset for s in stds])
+
+    done = np.zeros(b, dtype=bool)
+    status = np.full(b, int(HighsModelStatus.kNotset))
+    iters_done = np.zeros(b, dtype=np.int64)
+    total = 0
+    restarts = np.zeros(b, dtype=np.int64)
+    restarts_done = np.zeros(b, dtype=np.int64)
+    final_pobj = np.zeros(b)
+    final_dobj = np.zeros(b)
+    # each finished instance's checked iterate, kept on the device
+    x_fin = torch.zeros_like(state.x_pd)
+    y_fin = torch.zeros_like(state.y_pd)
+
+    # per-instance on-device restart control, the same 40-step
+    # checkRestartCriteria cadence as the single-instance path
+    ctl = RestartCtl(
+        fpe_init=torch.full((b,), np.inf, dtype=dtype, device=device),
+        fpe_last=torch.full((b,), np.inf, dtype=dtype, device=device),
+        fresh=torch.ones((b,), dtype=torch.bool, device=device),
+        total_k=torch.zeros((b,), dtype=torch.int32, device=device),
+        n_restarts=torch.zeros((b,), dtype=torch.int32, device=device))
+    # fixed step strategy: no primal-weight update at restarts
+    theta_dev = torch.zeros((), dtype=dtype, device=device)
+
+    n_blocks = 0
+    max_block = max(check, min(2560, 64 * check))
+    while True:
+        # the single-instance loop's deterministic block-size ramp
+        block_steps = min(max_block, check << min(6, n_blocks // 4))
+        n_windows = max(1, block_steps // check)
+        block_steps = n_windows * check
+        state, ctl, metrics = batched_pdhg_windows(
+            problem, state, ctl, n_windows, 1.0, check, theta_dev)
+        # every instance's metrics and restart count in one host copy
+        host = torch.stack(list(metrics) + [ctl.n_restarts.to(dtype)])
+        host = host.cpu().double().numpy()
+        mh = PdhgMetrics(*host[:-1])
+        restarts = host[-1].astype(np.int64)
+        total += block_steps
+        n_blocks += 1
+        pobj = mh.primal_obj + offsets
+        dobj = mh.dual_obj + offsets
+        rel_p = mh.primal_res / (1.0 + norms_b)
+        rel_d = mh.dual_res / (1.0 + norms_c)
+        rel_gap = np.abs(pobj - dobj) / (1.0 + np.abs(pobj) + np.abs(dobj))
+        newly = ~done & (rel_p < eps) & (rel_d < eps) & (rel_gap < eps)
+        if np.any(newly):
+            status[newly] = int(HighsModelStatus.kOptimal)
+            iters_done[newly] = total
+            restarts_done[newly] = restarts[newly]
+            done |= newly
+            final_pobj[newly] = pobj[newly]
+            final_dobj[newly] = dobj[newly]
+            sel = torch.as_tensor(newly, device=device)[:, None]
+            x_fin = torch.where(sel, state.x_pd, x_fin)
+            y_fin = torch.where(sel, state.y_pd, y_fin)
+            state = freeze_instances(
+                state, torch.as_tensor(done, device=device))
+        if log is not None:
+            log(f"batch iter {total}: {int(done.sum())}/{b} done")
+        if np.all(done):
+            break
+        if total >= iter_limit or \
+                time.perf_counter() - t_start > options.time_limit:
+            status[~done] = int(HighsModelStatus.kIterationLimit
+                                if total >= iter_limit
+                                else HighsModelStatus.kTimeLimit)
+            iters_done[~done] = total
+            restarts_done[~done] = restarts[~done]
+            final_pobj[~done] = pobj[~done]
+            final_dobj[~done] = dobj[~done]
+            break
+
+    # ---- recover per-instance solutions ------------------------------
+    sel = torch.as_tensor(done, device=device)[:, None]
+    xh = torch.where(sel, x_fin, state.x_pd).cpu().double().numpy()
+    yh = torch.where(sel, y_fin, state.y_pd).cpu().double().numpy()
+    results = []
+    for i, (lp, std) in enumerate(zip(lps, stds)):
+        dr, dc = scales[i]
+        n_std, m_std = std.num_col, std.num_row
+        x_std = xh[i, :n_std] * dc
+        y_std = yh[i, :m_std] * dr
+        z_std = std.c - std.a.T @ y_std
+        info = PdlpRunInfo()
+        info.status = HighsModelStatus(int(status[i]))
+        info.iterations = int(iters_done[i])
+        info.primal_obj = std.sense_mult * final_pobj[i]
+        info.dual_obj = std.sense_mult * final_dobj[i]
+        info.restarts = int(restarts_done[i])
+        info.solve_time = time.perf_counter() - t_start
+        col_value, row_dual, col_dual = recover_solution(
+            std, x_std, y_std, z_std)
+        sol = HighsSolution(
+            value_valid=True, dual_valid=True,
+            col_value=col_value, col_dual=col_dual,
+            row_value=(lp.a_matrix.to_scipy() @ col_value
+                       if lp.num_row else np.zeros(0)),
+            row_dual=row_dual)
+        results.append((info.status, sol, info))
+    return results

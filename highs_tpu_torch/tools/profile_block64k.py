@@ -4,21 +4,24 @@
         [--nblocks 512] [--out profile_block64k.json]
     python3 -m highs_tpu_torch.tools.profile_block64k --lp synth50k
         --format onehot [--out profile_synth50k.json]
+    python3 -m highs_tpu_torch.tools.profile_block64k --solver pdlp
+        [--out profile_block64k_avg.json]
 
 Solves the block64k LP (`utils/gen_block_lp.py`) through `Highs().run()`
 with the default options, or the synth50k LP (`utils/gen_synth_lp.py`)
-with solver "hipdlp" (`choose` sends an LP of its size to the IPM, not
-ported yet) in the matrix format `--format` (`--dtype` sets `tpu_dtype`;
-the default, "choose", is float32 with f64 refinement on CUDA), and
-splits the run's
+with solver "hipdlp" (`choose` sends an LP of its size to the IPM) in
+the matrix format `--format` (`--dtype` sets `tpu_dtype`; the default,
+"choose", is float32 with f64 refinement on CUDA); `--solver pdlp` runs
+the average-iterate engine instead.  It splits the run's
 host-clock time into presolve, the PDLP wrapper's host setup (standard
 form, scaling, operator build), each PDHG round (the refinement's host
 KKT oracle runs inside its round), recovery, and the rest of the
 solve, by timing the wrapper's steps from outside.  Then it
-runs 10 restart windows (400 Halpern steps) of the final problem once
-plainly, for the wall time of a step, and once under `torch.profiler`,
-for the device time of a step by kernel; their ratio is the device's
-busy share.  Prints one JSON object as its last line and writes it to
+runs 10 restart windows (400 Halpern steps; with `--solver pdlp` one
+average-mode block of 400 steps and its two metric sets) of the final
+problem once plainly, for the wall time of a step, and once under
+`torch.profiler`, for the device time of a step by kernel; their ratio
+is the device's busy share.  Prints one JSON object as its last line and writes it to
 `--out`.  Needs a CUDA card.
 """
 from __future__ import annotations
@@ -57,8 +60,9 @@ def _timed(module, name, sink):
     setattr(module, name, run)
 
 
-def _profile_windows(problem, dtype, device):
-    """Wall and device time of one Halpern step in 40-step windows."""
+def _profile_windows(problem, dtype, device, mode="halpern"):
+    """Wall and device time of one step: Halpern steps in 40-step
+    windows, or one average-mode block of as many steps."""
     n = problem.c.shape[0]
     m = problem.b.shape[0]
     x = torch.minimum(torch.clamp_min(problem.lo, 0.0), problem.up)
@@ -80,6 +84,12 @@ def _profile_windows(problem, dtype, device):
     theta = torch.tensor(0.0, dtype=dtype, device=device)
 
     def run():
+        if mode == "average":
+            sums = state._replace(x_anchor=torch.zeros_like(x),
+                                  y_anchor=torch.zeros_like(y))
+            out = pdhg.pdhg_block_avg(problem, sums, WINDOWS * INTERVAL)
+            pdhg.read_metric_pair(out[1], out[2])
+            return
         out = pdhg.pdhg_block_windows(problem, state, ctl(), WINDOWS, 1.0,
                                       INTERVAL, theta)
         pdhg.read_metrics(out[2], out[1])
@@ -126,6 +136,10 @@ def main(argv=None) -> int:
                     choices=["block64k", "synth50k"])
     ap.add_argument("--format", default="choose",
                     help="tpu_matrix_format")
+    ap.add_argument("--solver", default=None,
+                    choices=["choose", "hipdlp", "pdlp"],
+                    help="solver option (default: choose for block64k, "
+                    "hipdlp for synth50k)")
     ap.add_argument("--nblocks", type=int, default=NBLOCKS,
                     help="block-rows of block64k")
     ap.add_argument("--out", default="profile_block64k.json")
@@ -151,8 +165,9 @@ def main(argv=None) -> int:
     h.setOptionValue("output_flag", False)
     h.setOptionValue("tpu_dtype", args.dtype)
     h.setOptionValue("tpu_matrix_format", args.format)
-    if args.lp == "synth50k":
-        h.setOptionValue("solver", "hipdlp")
+    solver = args.solver or ("hipdlp" if args.lp == "synth50k"
+                             else "choose")
+    h.setOptionValue("solver", solver)
     h.passModel(lp)
     block_csr.LAUNCHES = 0
     onehot_spmv.LAUNCHES["onehot_spmv"] = 0
@@ -178,7 +193,7 @@ def main(argv=None) -> int:
     report = {
         "card": card_line(), "lp": args.lp, "format": args.format,
         "nblocks": args.nblocks if args.lp == "block64k" else None,
-        "tpu_dtype": args.dtype,
+        "tpu_dtype": args.dtype, "solver": solver,
         "device_dtype": str(dtype).replace("torch.", ""),
         "status": HighsModelStatus(h.getModelStatus()).name,
         "objective": h.getObjectiveValue(),
@@ -191,7 +206,8 @@ def main(argv=None) -> int:
         "recover_s": recover_s, "rounds": rounds,
         "ms_per_iteration": pdhg_s * 1e3 / max(1, iters),
     }
-    report["windows"] = _profile_windows(problem, dtype, device)
+    report["windows"] = _profile_windows(
+        problem, dtype, device, "average" if solver == "pdlp" else "halpern")
     for key, val in report.items():
         if key != "windows":
             print(f"{key}: {val}", flush=True)

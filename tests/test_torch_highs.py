@@ -131,9 +131,18 @@ def test_not_yet_ported_models_raise(tmp_path):
         h.run()
     with pytest.raises(NotImplementedError, match="not yet ported"):
         h.readModel(str(tmp_path / "model.lp"))
-    h.passModel(lp_from_numpy(d))   # 'choose' on a small LP: simplex first
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        h.run()
+    # 'choose' on a small LP runs the simplex first: the JAX facade's
+    # answer, basis and pivot count
+    port, jax = _highs_pair(d)
+    for hh in (port, jax):
+        hh.run()
+    assert int(port.getModelStatus()) == int(jax.getModelStatus()) == \
+        int(highs_tpu_torch.HighsModelStatus.kOptimal)
+    assert port.getInfo().simplex_iteration_count == \
+        jax.getInfo().simplex_iteration_count > 0
+    assert port.getObjectiveValue() == pytest.approx(
+        jax.getObjectiveValue(), rel=1e-12)
+    assert port.getBasis().valid and jax.getBasis().valid
 
 
 def _highs_pair(lp_dict, **opts):
@@ -149,16 +158,25 @@ def _highs_pair(lp_dict, **opts):
 
 
 @pytest.mark.parametrize("solver", ["ipm", "ipx", "hipo"])
-def test_ipm_solver_raises_where_crossover_would_run(solver):
-    # the JAX package runs crossover after an optimal IPM solve of an LP
-    # of at most 3,000 rows (run_crossover "on" by default): simplex,
-    # ROADMAP queue 1 item 4
-    h = highs_tpu_torch.Highs(device="cpu")
-    h.setOptionValue("output_flag", False)
-    h.setOptionValue("solver", solver)
-    h.passModel(lp_from_numpy(_lp_dict()))
-    with pytest.raises(NotImplementedError, match="item 4"):
+def test_ipm_solver_with_crossover_matches_jax(solver):
+    # an optimal IPM solve of an LP of at most 3,000 rows goes on to
+    # crossover (run_crossover "on" by default): a vertex with a basis
+    port, jax = _highs_pair(_lp_dict(), solver=solver)
+    for h in (port, jax):
         h.run()
+        assert int(h.getModelStatus()) == \
+            int(highs_tpu_torch.HighsModelStatus.kOptimal)
+    pi, ji = port.getInfo(), jax.getInfo()
+    print(f"{solver}: IPM {pi.ipm_iteration_count} / "
+          f"{ji.ipm_iteration_count}, crossover "
+          f"{pi.crossover_iteration_count} / {ji.crossover_iteration_count}")
+    assert pi.pdlp_iteration_count == ji.pdlp_iteration_count == -1
+    assert abs(pi.ipm_iteration_count - ji.ipm_iteration_count) <= 1
+    assert pi.crossover_iteration_count == ji.crossover_iteration_count >= 0
+    assert port.getBasis().valid and jax.getBasis().valid
+    assert pi.basis_validity == ji.basis_validity == 1
+    assert abs(port.getObjectiveValue() - jax.getObjectiveValue()) <= \
+        1e-9 * max(1.0, abs(jax.getObjectiveValue()))
 
 
 @pytest.mark.parametrize("solver", ["ipm", "ipx", "hipo"])

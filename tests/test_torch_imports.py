@@ -20,6 +20,7 @@ from highs_tpu_torch.device import resolve_device
 from highs_tpu_torch.ops import block_csr, linops, onehot_spmv
 from highs_tpu_torch.options import HighsOptions
 from highs_tpu_torch.solvers.icrash import run_icrash
+from highs_tpu_torch.solvers.pdlp.batch import solve_lp_batch
 from highs_tpu_torch.solvers.ipm.banded_chol import BandedCholesky
 from highs_tpu_torch.solvers.ipm.solver import (IpmProblem, IpmState,
                                                 solve_lp_ipm_native)
@@ -50,6 +51,14 @@ def test_import_leaves_jax_and_highs_tpu_out():
         "import highs_tpu_torch.solvers.classify\n"
         "import highs_tpu_torch.solvers.icrash\n"
         "import highs_tpu_torch.solvers.simplex.dualize\n"
+        "import highs_tpu_torch.solvers.simplex.native\n"
+        "import highs_tpu_torch.solvers.simplex.dual_native\n"
+        "import highs_tpu_torch.solvers.simplex.wrapper\n"
+        "import highs_tpu_torch.solvers.simplex.crossover\n"
+        "import highs_tpu_torch.solvers.native_lib\n"
+        "import highs_tpu_torch.solvers.pdlp.batch\n"
+        "import highs_tpu_torch.tools.lp_anchors\n"
+        "import highs_tpu_torch.tools.profile_block64k\n"
         "import highs_tpu_torch.utils.gen_grid_flow_lp\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'highs_tpu' or m.startswith('highs_tpu.')]\n"
@@ -143,6 +152,23 @@ CONSTRUCTORS = {
     "convert.pdhg_state_from_numpy": lambda: convert.pdhg_state_from_numpy(
         {f: np.zeros(2) for f in ("x", "y", "x_pd", "y_pd", "x_anchor",
                                   "y_anchor", "aty", "k", "eta", "omega")}),
+    "convert.pdhg_avg_state_from_numpy":
+        lambda: convert.pdhg_avg_state_from_numpy(
+            {f: np.zeros(2) for f in ("x", "y", "x_sum", "y_sum", "k", "eta",
+                                      "omega")}, None),
+    "convert.pdhg_batch_problem_from_numpy":
+        lambda: convert.pdhg_batch_problem_from_numpy([
+            {"a": np.eye(2), **{f: np.zeros(2) for f in (
+                "b", "c", "lo", "up", "is_eq", "lo_fin", "up_fin",
+                "inv_row_scale", "inv_col_scale")},
+             "norm_b": 0.0, "norm_c": 0.0}]),
+    "convert.pdhg_batch_state_from_numpy":
+        lambda: convert.pdhg_batch_state_from_numpy([
+            {f: np.zeros(2) for f in ("x", "y", "x_pd", "y_pd", "x_anchor",
+                                      "y_anchor", "aty", "k", "eta",
+                                      "omega")}]),
+    "pdlp.batch.solve_lp_batch":
+        lambda: solve_lp_batch([_LP], HighsOptions()),
     "convert.restart_ctl_from_numpy": lambda: convert.restart_ctl_from_numpy(
         {f: np.zeros(()) for f in ("fpe_init", "fpe_last", "fresh",
                                    "total_k", "n_restarts")}),

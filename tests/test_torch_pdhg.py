@@ -220,10 +220,18 @@ def test_solve_pdhg_restart_counts(device_restarts):
     _close(tr.y, jr.y, "y")
 
 
-def test_average_mode_not_yet_ported():
-    _, tprob = _problem("dense")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tp.solve_pdhg(tprob, N, M, tp.PdhgSettings(mode="average"))
+def test_average_mode_matches_jax():
+    # the average-iterate engine (solver "pdlp") on the same problem:
+    # the same iterations and restarts, the same reported iterate
+    jprob, tprob = _problem("dense", seed=16)
+    settings = dict(eps_optimal=1e-6, iteration_limit=4000, mode="average")
+    jr = jp.solve_pdhg(jprob, N, M, jp.PdhgSettings(**settings))
+    tr = tp.solve_pdhg(tprob, N, M, tp.PdhgSettings(**settings))
+    assert tr.status == jr.status
+    assert tr.iterations == jr.iterations
+    assert tr.restarts == jr.restarts > 0
+    _close(tr.x, jr.x, "x")
+    _close(tr.y, jr.y, "y")
 
 
 def test_block_csr_metrics_against_jax_kernel():

@@ -205,10 +205,43 @@ def test_bound_only_lp():
 
 
 @pytest.mark.parametrize("name,value,match", [
-    ("solver", "pdlp", "not yet ported"),
     ("tpu_mesh_shape", "2", "not yet ported")])
 def test_options_not_yet_ported_raise(name, value, match):
     opts = HighsOptions()
     setattr(opts, name, value)
     with pytest.raises(NotImplementedError, match=match):
         solve_lp_pdlp(lp_from_numpy(_sparse_lp()), opts, device="cpu")
+
+
+def test_pdlp_solver_runs_the_average_mode_like_jax():
+    # solver "pdlp" selects the average-iterate engine in both packages
+    jax_run, port_run = _solve_both(_sparse_lp(), solver="pdlp",
+                                    tpu_dtype="float64",
+                                    pdlp_optimality_tolerance=1e-6)
+    assert int(port_run[0]) == int(HighsModelStatus.kOptimal)
+    _assert_agree(jax_run, port_run)
+    assert port_run[2].iterations == jax_run[2].iterations
+    assert port_run[2].restarts == jax_run[2].restarts
+
+
+@pytest.mark.parametrize("solver", ["hipdlp", "pdlp"])
+def test_facade_clocks_count_pdhg_rounds_and_restarts(solver):
+    # the wrapper enters each PDHG round's seconds and restarts in the
+    # facade's named clocks: they agree with the wrapper's own counts
+    import highs_tpu_torch
+    d = _sparse_lp()
+    opts = HighsOptions()
+    opts.solver = solver
+    opts.tpu_dtype = "float64"
+    _, _, info = solve_lp_pdlp(lp_from_numpy(d), opts, device="cpu")
+    h = highs_tpu_torch.Highs(device="cpu")
+    for key, val in (("output_flag", False), ("presolve", "off"),
+                     ("solver", solver), ("tpu_dtype", "float64")):
+        h.setOptionValue(key, val)
+    h.passModel(lp_from_numpy(d))
+    h.run()
+    timer = h.getTimer()
+    assert h.getInfo().pdlp_iteration_count == info.iterations > 0
+    assert timer.num_calls("pdlp_round") == 1  # f64: no refinement
+    assert 0.0 < timer.read("pdlp_round") <= timer.read("solve")
+    assert timer.num_calls("pdlp_restart") == info.restarts
