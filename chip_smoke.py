@@ -87,7 +87,33 @@ Phases, each of which fails the run (non-zero exit) when it fails:
             host: kOptimal, a valid basis, pivots counted, the KKT check and
             scipy's objective; then ipm_dense's LP with solver "ipm" (the
             IPM on the card, then crossover on the host): kOptimal, a valid
-            basis, the crossover's count reported, scipy's objective.
+            basis, the crossover's count reported, scipy's objective;
+14. qp       the convex QP path, on the card:
+            qp_dense  `gen_mm_style(7, 10000, 5000, "full", 1e4, 0.3, 5e-4)`
+                      (`utils/gen_mm_qp.py`: the size of the Maros-Meszaros
+                      CVXQP1_L, 10,000 columns and 5,000 rows, a nearly
+                      dense Q) through `Highs().run()` with the default
+                      options: kOptimal, every dense Cholesky of the QP IPM
+                      on the card and none on the CPU, and an independent
+                      f64 certificate from the model's data alone (primal
+                      infeasibility of rows and bounds and stationarity
+                      c + Qx - A'y - z each <= 1e-7 relative, the
+                      multipliers' weight on infinite bounds <= 1e-7, and
+                      the gap between the primal objective and the QP's
+                      dual objective -1/2 x'Qx + the row and bound terms <=
+                      1e-6 relative); it prints the iterations, the set-up
+                      seconds, the ms per iteration split into factor(Q+D),
+                      the A' solves, A W, factor(M) and the rest, and the
+                      FP64 rate of the iteration's useful operations;
+            qpasm     `gen_mm_style(7, 300, 150, ...)` with solver "qpasm"
+                      (the active set on the host): kOptimal, the same
+                      certificate, the objective within 1e-6 of the QP IPM's
+                      on the card for the same QP, and whether the active
+                      set fell back to the IPM;
+            qp_status a seeded infeasible and a seeded unbounded QP through
+                      `Highs().run()`: kInfeasible and kUnbounded, their
+                      classification LPs factored on the card; an MIQP
+                      gives kError.
 
 Kernel times (`ms`, `plain_ms`, `library_ms`) are device times with a
 cold L2, as the PDLP loop finds its operator (`tools/card.py`
@@ -127,6 +153,12 @@ IPM_DENSE_SHAPE = (2400, 20000)
 IPM_DENSE_OBJECTIVE = 402.6279984586837
 GRID_SIDE = 240
 IPM_SPARSE_OBJECTIVE = -1567218.130564652
+# the QP phase's full-width QP (gen_mm_style's arguments) and the
+# active set's QP (seed, n, m)
+QP_DENSE = dict(seed=7, n=10000, m=5000, hess_rank="full", cond=1e4,
+                eq_frac=0.3, density=5e-4)
+QP_ASM = (7, 300, 150)
+GAP_TOL = 1e-6
 FORMATS = ["dense", "ell", "panelell", "bucketell", "bucketperm", "bcoo",
            "onehot"]
 FORMATS_ROWS = 4096
@@ -826,6 +858,224 @@ def simplex_phase(device):
     return out
 
 
+def qp_certificate(model, sol):
+    """Independent f64 optimality certificate of a convex QP's solution
+    from the model's data alone (minimisation; row duals y >= 0 at a
+    lower row bound, z likewise): relative primal infeasibility of rows
+    and bounds, stationarity c + Qx - A'y - z, the multipliers' weight
+    on infinite bounds, and the relative gap between the primal
+    objective and the dual objective -1/2 x'Qx + sum of the finite bound
+    terms.  A primal and a dual point that pass it bound the optimum
+    from both sides."""
+    import numpy as np
+    lp = model.lp
+    x = np.asarray(sol.col_value, dtype=np.float64)
+    y = np.asarray(sol.row_dual, dtype=np.float64)
+    z = np.asarray(sol.col_dual, dtype=np.float64)
+    c = np.asarray(lp.col_cost, dtype=np.float64)
+    a = lp.a_matrix.to_scipy().tocsr()
+    qx = model.hessian.to_scipy_full().tocsr() @ x
+
+    def excess(v, lo, up):
+        return (np.where(np.isfinite(lo), np.maximum(lo - v, 0.0), 0.0) +
+                np.where(np.isfinite(up), np.maximum(v - up, 0.0), 0.0))
+
+    def bound_terms(mult, lo, up):
+        pos, neg = np.maximum(mult, 0.0), np.minimum(mult, 0.0)
+        lo_f, up_f = np.isfinite(lo), np.isfinite(up)
+        return (float(np.where(lo_f, lo, 0.0) @ pos +
+                      np.where(up_f, up, 0.0) @ neg),
+                np.concatenate([pos[~lo_f], neg[~up_f]]))
+    bounds = np.concatenate([lp.row_lower, lp.row_upper, lp.col_lower,
+                             lp.col_upper])
+    primal = math.hypot(
+        np.linalg.norm(excess(a @ x, lp.row_lower, lp.row_upper)),
+        np.linalg.norm(excess(x, lp.col_lower, lp.col_upper))) / (
+        1.0 + np.linalg.norm(bounds[np.isfinite(bounds)]))
+    stationarity = np.linalg.norm(c + qx - a.T @ y - z) / (
+        1.0 + np.linalg.norm(c))
+    row_term, row_wrong = bound_terms(y, lp.row_lower, lp.row_upper)
+    col_term, col_wrong = bound_terms(z, lp.col_lower, lp.col_upper)
+    dual_inf = np.linalg.norm(np.concatenate([row_wrong, col_wrong])) / (
+        1.0 + np.linalg.norm(c))
+    pobj = float(c @ x + 0.5 * x @ qx) + lp.offset
+    dobj = float(-0.5 * x @ qx) + row_term + col_term + lp.offset
+    gap = abs(pobj - dobj) / (1.0 + abs(pobj) + abs(dobj))
+    return dict(primal=float(primal), stationarity=float(stationarity),
+                dual_inf=float(dual_inf), gap=gap, pobj=pobj, dobj=dobj)
+
+
+def certified(name, cert) -> bool:
+    ok = (cert["primal"] <= KKT_TOL and cert["stationarity"] <= KKT_TOL
+          and cert["dual_inf"] <= KKT_TOL and cert["gap"] <= GAP_TOL)
+    log(f"{name}: independent f64 certificate primal {cert['primal']:.3e} "
+        f"stationarity {cert['stationarity']:.3e} dual_inf "
+        f"{cert['dual_inf']:.3e} (limits {KKT_TOL:g}) gap "
+        f"{cert['gap']:.3e} (limit {GAP_TOL:g}); primal obj "
+        f"{cert['pobj']!r} dual obj {cert['dobj']!r}: "
+        f"{'passed' if ok else 'FAILED'}")
+    return ok
+
+
+def qp_solve(name, model, device, options=None):
+    """One QP through the facade on `device`; returns (facade, record)
+    with the QP IPM's dense factors by device and the facade's lines."""
+    import highs_tpu_torch
+    from highs_tpu_torch.solvers.qp import ipm_qp
+
+    lines = []
+    h = highs_tpu_torch.Highs(device=device)
+    h.setOptionValue("time_limit", SOLVE_TIME_LIMIT)
+    h.setOptionValue("log_to_console", False)
+    h.setLogCallback(lambda _kind, msg: lines.append(msg))
+    for key, val in (options or {}).items():
+        h.setOptionValue(key, val)
+    h.passModel(model)
+    dense0 = dict(ipm_qp.DENSE_FACTORS)
+    t0 = time.perf_counter()
+    status = h.run()
+    sync(device)
+    seconds = time.perf_counter() - t0
+    rec = dict(status=h.getModelStatus().name, run_status=int(status),
+               objective=h.getObjectiveValue(), seconds=seconds,
+               qp_iterations=int(h.getInfo().qp_iteration_count),
+               dense_factors={k: ipm_qp.DENSE_FACTORS[k] - dense0[k]
+                              for k in dense0},
+               fell_back=any("falling back to IPM" in ln for ln in lines))
+    log(f"{name}: {model.lp.num_row} x {model.lp.num_col} status "
+        f"{rec['status']} objective {rec['objective']!r} qp_iterations "
+        f"{rec['qp_iterations']} seconds {seconds:.3f} QP IPM dense "
+        f"factors {rec['dense_factors']} (by device)")
+    return h, rec
+
+
+def qp_dense_phase(device):
+    """The full-width QP through `Highs().run()` with default options."""
+    import highs_tpu_torch
+    from highs_tpu_torch.solvers.pdlp.preprocess import preprocess_lp
+    from highs_tpu_torch.tools.card import FP64_TENSOR_FLOPS
+    from highs_tpu_torch.utils.gen_mm_qp import mm_qp_model
+
+    t0 = time.perf_counter()
+    model = mm_qp_model(**QP_DENSE)
+    gen_s = time.perf_counter() - t0
+    n_std = preprocess_lp(model.lp).num_col
+    m = model.lp.num_row
+    log(f"qp_dense: {m} x {model.lp.num_col} (standard form {m} x {n_std}),"
+        f" {model.lp.a_matrix.num_nz} nonzeros in A, {model.hessian.num_nz} "
+        f"in the lower triangle of Q; generated in {gen_s:.1f} s")
+    h, rec = qp_solve("qp_dense", model, device)
+    iters = rec["qp_iterations"]
+    timer = h.getTimer()
+    clocks = {k: timer.read(f"qp_{k}") for k in
+              ("setup", "iterations", "factor_q", "solve_at", "gemm",
+               "factor_m")}
+    per_it = {k: 1e3 * clocks[k] / max(iters, 1)
+              for k in ("iterations", "factor_q", "solve_at", "gemm",
+                        "factor_m")}
+    per_it["rest"] = per_it["iterations"] - sum(
+        per_it[k] for k in ("factor_q", "solve_at", "gemm", "factor_m"))
+    # the iteration's useful operations: the Cholesky of Q + D (n^3/3),
+    # the two triangular solves against A' (2 n^2 m), A W (2 m^2 n) and
+    # the Cholesky of the Schur complement (m^3/3), n = n_std
+    flops = {"factor_q": n_std ** 3 / 3, "solve_at": 2.0 * n_std ** 2 * m,
+             "gemm": 2.0 * m * m * n_std, "factor_m": m ** 3 / 3}
+    total = sum(flops.values())
+    rate = total / (per_it["iterations"] * 1e-3)
+    rates = {k: flops[k] / (per_it[k] * 1e-3) / 1e12 for k in flops
+             if per_it[k] > 0}
+    rec.update(generate_s=gen_s, n_std=n_std, qp_setup_s=clocks["setup"],
+               qp_iterations_s=clocks["iterations"],
+               ms_per_iteration=per_it,
+               tflop_per_iteration=total / 1e12,
+               useful_fp64_tflops=rate / 1e12,
+               useful_fp64_share=rate / FP64_TENSOR_FLOPS,
+               phase_tflops=rates)
+    log(f"qp_dense: {iters} iterations, setup {clocks['setup']:.3f} s, "
+        f"iterations {clocks['iterations']:.3f} s; ms per iteration: "
+        f"factor(Q+D) {per_it['factor_q']:.3f} A' solves "
+        f"{per_it['solve_at']:.3f} A W {per_it['gemm']:.3f} factor(M) "
+        f"{per_it['factor_m']:.3f} rest {per_it['rest']:.3f} of "
+        f"{per_it['iterations']:.3f}")
+    log(f"qp_dense: {total / 1e12:.3f} TFLOP of useful FP64 operations an "
+        f"iteration at {rate / 1e12:.2f} TFLOP/s, "
+        f"{100 * rate / FP64_TENSOR_FLOPS:.1f}% of the FP64 tensor peak "
+        f"({FP64_TENSOR_FLOPS / 1e12:.0f} TFLOP/s); by phase "
+        f"{ {k: round(v, 2) for k, v in rates.items()} } TFLOP/s")
+    if rec["status"] != "kOptimal":
+        raise RuntimeError(f"qp_dense: {rec}")
+    if device.type == "cuda" and (
+            rec["dense_factors"]["cuda"] != 2 * iters or
+            rec["dense_factors"]["cpu"]):
+        raise RuntimeError(f"qp_dense: dense factors "
+                           f"{rec['dense_factors']} for {iters} iterations:"
+                           " not every factor ran on the card")
+    rec["certificate"] = qp_certificate(model, h.getSolution())
+    if not certified("qp_dense", rec["certificate"]):
+        raise RuntimeError("qp_dense: the solution fails the certificate")
+    return rec
+
+
+def qpasm_phase(device):
+    """The active set on a 300-column QP, against the QP IPM on the card
+    for the same QP."""
+    from highs_tpu_torch.utils.gen_mm_qp import mm_qp_model
+    model = mm_qp_model(*QP_ASM)
+    _, ipm = qp_solve("qpasm_ipm", model, device)
+    h, rec = qp_solve("qpasm", model, device, {"solver": "qpasm"})
+    rec["ipm_objective"] = ipm["objective"]
+    rec["rel_obj"] = abs(rec["objective"] - ipm["objective"]) / abs(
+        ipm["objective"])
+    how = ("fell back to the IPM" if rec["fell_back"] else
+           "the active set concluded")
+    log(f"qpasm: {how}; objective {rec['objective']!r} against the QP IPM's "
+        f"{ipm['objective']!r} on the card, rel diff {rec['rel_obj']:.3e}")
+    if rec["status"] != "kOptimal" or ipm["status"] != "kOptimal" or             not rec["rel_obj"] <= 1e-6:
+        raise RuntimeError(f"qpasm: {rec}")
+    rec["certificate"] = qp_certificate(model, h.getSolution())
+    if not certified("qpasm", rec["certificate"]):
+        raise RuntimeError("qpasm: the solution fails the certificate")
+    return rec
+
+
+def qp_status_phase(device):
+    """An infeasible and an unbounded QP, and an MIQP."""
+    import numpy as np
+    from highs_tpu_torch.solvers.ipm import solver
+    from highs_tpu_torch.utils.gen_mm_qp import mm_qp_model, status_qp_model
+    out = {}
+    for kind, want in (("infeasible", "kInfeasible"),
+                       ("unbounded", "kUnbounded")):
+        lp_factors0 = dict(solver.DENSE_FACTORS)
+        _, rec = qp_solve(f"qp_{kind}", status_qp_model(kind), device)
+        rec["lp_ipm_dense_factors"] = {
+            k: solver.DENSE_FACTORS[k] - lp_factors0[k] for k in lp_factors0}
+        log(f"qp_{kind}: classification LPs' dense factors "
+            f"{rec['lp_ipm_dense_factors']} (by device)")
+        if rec["status"] != want or (device.type == "cuda" and (
+                not rec["lp_ipm_dense_factors"]["cuda"] or
+                rec["lp_ipm_dense_factors"]["cpu"])):
+            raise RuntimeError(f"qp_{kind}: {rec}")
+        out[kind] = rec
+    model = mm_qp_model(11, 24, 12)
+    model.lp.integrality = np.ones(24, dtype=np.uint8)
+    _, rec = qp_solve("miqp", model, device)
+    if rec["run_status"] != -1 or rec["status"] != "kNotset":
+        raise RuntimeError(f"miqp: {rec}, not kError")
+    out["miqp"] = rec
+    return out
+
+
+def qp_phase(device):
+    """Phase 14: the QP path, with the kernels' launch counts around it."""
+    reset_launches()
+    out = {"qp_dense": qp_dense_phase(device), "qpasm": qpasm_phase(device),
+           "qp_status": qp_status_phase(device)}
+    out["kernel_launches"] = read_launches()
+    log(f"qp: kernel launches on the QP path {out['kernel_launches']}")
+    return out
+
+
 def headline(records, launches, extra=None):
     """One kernel's line: the f32 records (the main path's type), the
     mean of its directions."""
@@ -922,6 +1172,7 @@ def main() -> int:
         ["block_csr_spmv"], device)
     batch = run("batch", batch_phase, device)
     simplex = run("simplex", simplex_phase, device)
+    qp = run("qp", qp_phase, device)
 
     probe_head = [r for r in probe_records
                   if r["name"] == gather_probe.SHAPES[0][0]]
@@ -949,7 +1200,7 @@ def main() -> int:
         for name in ("block_csr_spmv", "onehot_spmv", "gather_probe")],
         "formats": formats, "synth50k_seconds": oh_seconds, "ipm": ipm,
         "block64k_avg_seconds": avg_seconds, "batch": batch,
-        "simplex": simplex,
+        "simplex": simplex, "qp": qp,
         "phase_seconds": phase_s,
         "total_seconds": time.perf_counter() - t_start}
     log(json.dumps(summary))

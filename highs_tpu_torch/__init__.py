@@ -6,9 +6,10 @@ statuses, info and solutions), on a torch device: CUDA by default, the
 CPU when asked for by name.
 
 This package imports torch, numpy and scipy, never jax or highs_tpu.
-The LP path runs presolve, then the restarted reflected-Halpern PDHG,
-whose block-CSR products run a hand-written CUDA kernel
-(csrc/block_csr_spmv.cu).
+The LP path runs presolve, then the simplex, the interior-point solver
+or the restarted PDHG, whose block-CSR and one-hot products run
+hand-written CUDA kernels (csrc/); a convex QP (an LP with a Hessian)
+runs the QP interior-point solver on the device.
 """
 
 __version__ = "0.1.0"

@@ -21,6 +21,7 @@ from .ops.block_csr import BLOCK, BlockCsr
 from .ops.linops import DenseMatrix, EllMatrix
 from .solvers.ipm.solver import IpmProblem, IpmState, sparse_k
 from .solvers.pdlp.pdhg import PdhgProblem, PdhgState, RestartCtl
+from .solvers.qp.ipm_qp import QpIpmProblem, QpIpmState
 
 _LP_ARRAYS = ("col_cost", "col_lower", "col_upper", "row_lower",
               "row_upper")
@@ -188,3 +189,22 @@ def ipm_state_from_numpy(d: Mapping, device=None) -> IpmState:
         name: torch.as_tensor(np.array(d[name]), dtype=torch.float64,
                               device=device)
         for name in IpmState._fields})
+
+
+def qp_ipm_problem_from_numpy(d: Mapping, device=None) -> QpIpmProblem:
+    """QpIpmProblem from f64 arrays named as its fields (dense `a` and
+    `q`, as the JAX package's QP IPM holds them)."""
+    device = resolve_device(device)
+    return QpIpmProblem(**{
+        name: torch.as_tensor(np.array(d[name]), dtype=torch.float64,
+                              device=device)
+        for name in QpIpmProblem._fields})
+
+
+def qp_ipm_state_from_numpy(d: Mapping, device=None) -> QpIpmState:
+    """QpIpmState from f64 arrays named as its fields."""
+    device = resolve_device(device)
+    return QpIpmState(**{
+        name: torch.as_tensor(np.array(d[name]), dtype=torch.float64,
+                              device=device)
+        for name in QpIpmState._fields})

@@ -3,13 +3,15 @@
 Equivalent of the reference `class Highs` (highs/Highs.h:43,
 lp_data/Highs.cpp): pass/read a model, set options, `run()`, query
 solution / info / status.  `run()` solves an LP through presolve and the
-LP dispatch on the torch device given to the constructor (default CUDA);
-the simplex and crossover run on the host.  MIP and QP models, `.lp`
-files and the model-editing and analysis methods of the JAX package's
-facade are not ported yet.
+LP dispatch, and a convex QP through the QP solvers, on the torch device
+given to the constructor (default CUDA); the simplex, crossover and the
+QP active set run on the host.  The model-editing methods come from
+`HighsModelApi` (model_api.py).  MIP models, `.lp` files and the
+analysis methods of the JAX package's facade are not ported yet.
 """
 from __future__ import annotations
 
+import copy
 import math
 import time
 from typing import Any, Callable, Optional
@@ -18,12 +20,14 @@ import numpy as np
 
 from .callbacks import HighsCallback
 from .constants import (BasisValidity, HighsModelStatus, HighsStatus,
-                        HighsVarType, SolutionStatus)
+                        HighsVarType, ObjSense, SolutionStatus,
+                        model_status_to_string)
 from .device import resolve_device
 from .info import HighsInfo
 from .io.logging import HighsLogger, HighsLogType
 from .io.mps import read_mps, write_mps
-from .models.lp import HighsLp, HighsModel
+from .model_api import HighsModelApi
+from .models.lp import HighsHessian, HighsLp, HighsModel
 from .models.solution import HighsBasis, HighsSolution
 from .options import HighsOptions
 from .run_data import HighsRunData
@@ -31,7 +35,7 @@ from .utils.kkt import compute_kkt, fill_info_from_kkt
 from .utils.timer import HighsTimer
 
 
-class Highs:
+class Highs(HighsModelApi):
     """User-facing solver object (API parity with the reference Highs)."""
 
     def __init__(self, device=None):
@@ -46,6 +50,8 @@ class Highs:
         self._log_callback: Optional[Callable[[int, str], None]] = None
         self._callbacks = HighsCallback()
         self._run_time = 0.0
+        self._dual_ray: Optional[np.ndarray] = None
+        self._primal_ray: Optional[np.ndarray] = None
         self._logger = HighsLogger(self._options)
         self._timer = HighsTimer()
 
@@ -82,11 +88,31 @@ class Highs:
         self._invalidate_solver_data()
         return HighsStatus.kOk
 
+    def passHessian(self, hessian: HighsHessian) -> HighsStatus:
+        if hessian.dim not in (0, self._model.lp.num_col):
+            return HighsStatus.kError
+        self._model.hessian = hessian
+        self._invalidate_solver_data()
+        return HighsStatus.kOk
+
+    def clearModel(self) -> HighsStatus:
+        self._model = HighsModel()
+        self._invalidate_solver_data()
+        return HighsStatus.kOk
+
+    clear = clearModel
+
+    def clearSolver(self) -> HighsStatus:
+        self._invalidate_solver_data()
+        return HighsStatus.kOk
+
     def _invalidate_solver_data(self):
         self._solution.clear()
         self._basis.clear()
         self._info.invalidate()
         self._model_status = HighsModelStatus.kNotset
+        self._dual_ray = None
+        self._primal_ray = None
 
     # ------------------------------------------------------------------
     # Options
@@ -101,6 +127,18 @@ class Highs:
             return None
         return value
 
+    def resetOptions(self) -> HighsStatus:
+        self._options.reset()
+        return HighsStatus.kOk
+
+    def readOptions(self, filename: str) -> HighsStatus:
+        return self._options.read_options_file(filename)
+
+    def writeOptions(self, filename: str,
+                     report_only_deviations: bool = False) -> HighsStatus:
+        self._options.write_options_file(filename, report_only_deviations)
+        return HighsStatus.kOk
+
     @property
     def options(self) -> HighsOptions:
         return self._options
@@ -114,8 +152,33 @@ class Highs:
     def getLp(self) -> HighsLp:
         return self._model.lp
 
+    def getNumCol(self) -> int:
+        return self._model.lp.num_col
+
+    def getNumRow(self) -> int:
+        return self._model.lp.num_row
+
+    def getNumNz(self) -> int:
+        return self._model.lp.num_nz
+
+    def getHessianNumNz(self) -> int:
+        h = self._model.hessian
+        return h.num_nz if h is not None else 0
+
     def getModelStatus(self) -> HighsModelStatus:
         return self._model_status
+
+    def getScaledModelStatus(self) -> HighsModelStatus:
+        # no separate scaled-model status (scaling is internal to each
+        # solver): the model status
+        return self._model_status
+
+    def modelStatusToString(self, status) -> str:
+        return model_status_to_string(status)
+
+    def solutionStatusToString(self, status: int) -> str:
+        return {0: "None", 1: "Infeasible", 2: "Feasible"}.get(
+            int(status), "Unknown")
 
     def getSolution(self) -> HighsSolution:
         return self._solution
@@ -135,9 +198,58 @@ class Highs:
     def getRunTime(self) -> float:
         return self._run_time
 
+    def getObjectiveSense(self) -> ObjSense:
+        return self._model.lp.sense
+
+    def changeObjectiveSense(self, sense: ObjSense) -> HighsStatus:
+        self._model.lp.sense = ObjSense(sense)
+        return HighsStatus.kOk
+
+    def changeObjectiveOffset(self, offset: float) -> HighsStatus:
+        self._model.lp.offset = float(offset)
+        return HighsStatus.kOk
+
+    def version(self) -> str:
+        from . import __version__
+        return __version__
+
+    def versionMajor(self) -> int:
+        return int(self.version().split(".")[0])
+
+    def versionMinor(self) -> int:
+        return int(self.version().split(".")[1])
+
+    def versionPatch(self) -> int:
+        return int(self.version().split(".")[2])
+
+    def compilationDate(self) -> str:
+        return "deprecated"
+
+    def githash(self) -> str:
+        """The short hash of the checkout's HEAD, or "n/a"."""
+        import os
+        import subprocess
+        try:
+            return subprocess.run(
+                ["git", "rev-parse", "--short", "HEAD"],
+                capture_output=True, text=True, timeout=5,
+                cwd=os.path.dirname(os.path.dirname(
+                    os.path.abspath(__file__)))).stdout.strip() or "n/a"
+        except (OSError, subprocess.SubprocessError):
+            return "n/a"
+
     def getRunData(self) -> HighsRunData:
         """The post-run metric registry (reference Highs::getRunData)."""
         return self._run_data
+
+    def getRunDataValue(self, name: str):
+        """Value of one run-data record by name (reference
+        Highs::getRunDataValue, Highs.h:421-429)."""
+        return self._run_data.get(name)
+
+    def getRunDataType(self, name: str):
+        """Type of one run-data record (reference getRunDataType)."""
+        return HighsRunData.type_of(name)
 
     def getTimer(self) -> HighsTimer:
         """The named-clock timer registry of the last run (reference
@@ -146,6 +258,22 @@ class Highs:
 
     def setLogCallback(self, callback) -> HighsStatus:
         self._log_callback = callback
+        return HighsStatus.kOk
+
+    def setCallback(self, callback, user_data=None) -> HighsStatus:
+        """Register the user callback (reference Highs::setCallback)."""
+        self._callbacks.user_callback = callback
+        self._callbacks.user_callback_data = user_data
+        return HighsStatus.kOk
+
+    def startCallback(self, callback_type) -> HighsStatus:
+        if self._callbacks.user_callback is None:
+            return HighsStatus.kError
+        self._callbacks.active[int(callback_type)] = True
+        return HighsStatus.kOk
+
+    def stopCallback(self, callback_type) -> HighsStatus:
+        self._callbacks.active[int(callback_type)] = False
         return HighsStatus.kOk
 
     # ------------------------------------------------------------------
@@ -161,6 +289,54 @@ class Highs:
         else:
             self._basis = basis
         return HighsStatus.kOk
+
+    def setLogicalBasis(self) -> HighsStatus:
+        """All-slack (logical) basis."""
+        from .constants import HighsBasisStatus
+        lp = self._model.lp
+        b = HighsBasis(valid=True)
+        b.col_status = [HighsBasisStatus.kLower] * lp.num_col
+        b.row_status = [HighsBasisStatus.kBasic] * lp.num_row
+        self._basis = b
+        return HighsStatus.kOk
+
+    # ------------------------------------------------------------------
+    # Basis freeze/unfreeze (reference Highs::freezeBasis /
+    # unfreezeBasis / frozenBasisAllDataClear, Highs.h:1574-1596): a
+    # frozen id snapshots the basis, unfreeze restores it.
+    # ------------------------------------------------------------------
+    def freezeBasis(self):
+        """Snapshot the current basis; returns (status, id)."""
+        if not self._basis.valid:
+            return HighsStatus.kError, -1
+        store = getattr(self, "_frozen_bases", None)
+        if store is None:
+            store = {}
+            self._frozen_bases = store
+            self._frozen_next_id = 0
+        fid = self._frozen_next_id
+        self._frozen_next_id += 1
+        store[fid] = copy.deepcopy(self._basis)
+        return HighsStatus.kOk, fid
+
+    def unfreezeBasis(self, frozen_basis_id: int) -> HighsStatus:
+        """Restore (and release) a frozen basis by id."""
+        store = getattr(self, "_frozen_bases", None)
+        if not store or frozen_basis_id not in store:
+            return HighsStatus.kError
+        basis = store.pop(frozen_basis_id)
+        lp = self._model.lp
+        if len(basis.col_status) != lp.num_col or \
+                len(basis.row_status) != lp.num_row:
+            return HighsStatus.kError  # model changed shape since
+        self._basis = basis
+        return HighsStatus.kOk
+
+    def frozenBasisAllDataClear(self) -> HighsStatus:
+        """kOk when no frozen basis data remains (reference
+        frozenBasisAllDataClear semantics)."""
+        store = getattr(self, "_frozen_bases", None)
+        return HighsStatus.kOk if not store else HighsStatus.kError
 
     def _log(self, msg: str, log_type=None):
         from .constants import HighsCallbackType as CbType
@@ -249,12 +425,16 @@ class Highs:
             self._info.objective_function_value = math.nan
             return status
 
+        if self._model.is_qp() and self._model.is_mip():
+            self._log("MIQP is not supported")
+            self._model_status = HighsModelStatus.kNotset
+            return HighsStatus.kError
+
         if self._model.is_mip() and not self._options.solve_relaxation:
             raise NotImplementedError(
                 "MIP models are not yet ported (ROADMAP queue 1 item 7)")
         if self._model.is_qp():
-            raise NotImplementedError(
-                "QP models are not yet ported (ROADMAP queue 1 item 6)")
+            return self._call_solve_qp()
         return self._call_solve_lp()
 
     def _call_solve_lp(self) -> HighsStatus:
@@ -287,11 +467,24 @@ class Highs:
                 setattr(self._info, name, getattr(lp_info, name))
         return HighsStatus.kOk
 
-    def _fill_info_lp(self, lp: HighsLp, lp_info):
+    def _call_solve_qp(self) -> HighsStatus:
+        from .solvers.qp.wrapper import solve_qp
+        status, solution, qp_info = solve_qp(
+            self._model, self._options, log=self._log,
+            device=self._device)
+        self._model_status = status
+        self._solution = solution
+        self._fill_info_lp(self._model.lp, qp_info,
+                           hessian=self._model.hessian)
+        self._info.qp_iteration_count = qp_info.iterations
+        return HighsStatus.kOk
+
+    def _fill_info_lp(self, lp: HighsLp, lp_info, hessian=None):
         self._info.invalidate()
         self._info.valid = True
         for attr in ("simplex_iteration_count", "ipm_iteration_count",
-                     "crossover_iteration_count", "pdlp_iteration_count"):
+                     "crossover_iteration_count", "pdlp_iteration_count",
+                     "qp_iteration_count"):
             if hasattr(lp_info, attr):
                 setattr(self._info, attr, getattr(lp_info, attr))
         if self._solution.value_valid:
@@ -300,7 +493,8 @@ class Highs:
                 self._options.primal_feasibility_tolerance,
                 self._options.dual_feasibility_tolerance,
                 self._options.primal_residual_tolerance,
-                self._options.dual_residual_tolerance)
+                self._options.dual_residual_tolerance,
+                hessian=hessian)
             fill_info_from_kkt(self._info, rep)
             self._info.objective_function_value = \
                 rep.objective_function_value
@@ -341,4 +535,147 @@ class Highs:
         if info.basis is not None:
             self._basis = info.basis
         self._fill_info_lp(self._model.lp, info)
+        return HighsStatus.kOk
+
+    # ------------------------------------------------------------------
+    # Rays
+    # ------------------------------------------------------------------
+    def getDualRay(self):
+        """Return (has_ray, ray): a Farkas certificate of primal
+        infeasibility (reference Highs::getDualRay), from the elastic
+        feasibility LP's optimal row duals (the IPM on the facade's
+        device)."""
+        if self._model_status != HighsModelStatus.kInfeasible:
+            return False, None
+        if self._dual_ray is not None:
+            return True, self._dual_ray
+        from .solvers.classify import build_primal_feasibility_lp
+        from .solvers.ipm.wrapper import solve_lp_ipm
+        feas_lp = build_primal_feasibility_lp(self._model.lp)
+        st, sol, info = solve_lp_ipm(feas_lp, self._options,
+                                     device=self._device)
+        if st != HighsModelStatus.kOptimal or not sol.dual_valid:
+            return False, None
+        self._dual_ray = np.asarray(sol.row_dual, dtype=np.float64)
+        return True, self._dual_ray
+
+    def getPrimalRay(self):
+        """Return (has_ray, ray): an unbounded primal direction
+        (reference Highs::getPrimalRay), from the recession-cone LP."""
+        if self._model_status != HighsModelStatus.kUnbounded:
+            return False, None
+        if self._primal_ray is not None:
+            return True, self._primal_ray
+        from .solvers.classify import build_qp_ray_lp
+        from .solvers.ipm.wrapper import solve_lp_ipm
+        ray_lp = build_qp_ray_lp(self._model)
+        st, sol, info = solve_lp_ipm(ray_lp, self._options,
+                                     device=self._device)
+        if st != HighsModelStatus.kOptimal or not sol.value_valid or \
+                info.primal_obj >= -1e-9:
+            return False, None
+        self._primal_ray = np.asarray(sol.col_value, dtype=np.float64)
+        return True, self._primal_ray
+
+    def getDualUnboundednessDirection(self):
+        """The reference's name for the primal ray."""
+        return self.getPrimalRay()
+
+    # ------------------------------------------------------------------
+    # Reporting
+    # ------------------------------------------------------------------
+    def reportSolvedStats(self):
+        """Report solve statistics in the reference's format
+        (Highs.cpp:5020-5061 reportSolvedLpQpStats)."""
+        if not self._options.output_flag:
+            return
+        lp = self._model.lp
+        if lp.model_name:
+            self._log(f"Model name          : {lp.model_name}")
+        self._log("Model status        : "
+                  f"{model_status_to_string(self._model_status)}")
+        info = self._info
+        if info.valid:
+            for label, count in (
+                    ("Simplex   iterations", info.simplex_iteration_count),
+                    ("IPM       iterations", info.ipm_iteration_count),
+                    ("Crossover iterations", info.crossover_iteration_count),
+                    ("PDLP      iterations", info.pdlp_iteration_count),
+                    ("QP ASM    iterations", info.qp_iteration_count)):
+                if count > 0:
+                    self._log(f"{label}: {count}")
+            if self._model.is_mip() and info.mip_node_count >= 0:
+                self._log(f"MIP nodes           : {info.mip_node_count}")
+                if math.isfinite(info.mip_gap):
+                    self._log(f"MIP gap             : "
+                              f"{100.0 * info.mip_gap:.4g}%")
+            if self._solution.value_valid or \
+                    self._model_status == HighsModelStatus.kModelEmpty:
+                self._log("Objective value     : "
+                          f"{info.objective_function_value:17.10e}")
+        if self._solution.dual_valid and math.isfinite(
+                info.primal_dual_objective_error):
+            self._log("P-D objective error : "
+                      f"{info.primal_dual_objective_error:17.10e}")
+        if not self._options.timeless_log:
+            self._log(f"HiGHS run time      : {self._run_time:13.2f}")
+
+    def writeSolution(self, filename: str = "", style: int = 0
+                      ) -> HighsStatus:
+        from .io.solution_writer import write_solution
+        return write_solution(self, filename, style)
+
+    # ------------------------------------------------------------------
+    # Standalone presolve / postsolve (reference Highs::presolve,
+    # Highs::postsolve; C API Highs_presolve / Highs_getPresolvedLp)
+    # ------------------------------------------------------------------
+    def presolve(self) -> HighsStatus:
+        """Run presolve only; the reduced model is available via
+        getPresolvedLp()."""
+        from .presolve.presolve import presolve_lp
+        lp = self._model.lp
+        if lp.is_empty():
+            self._presolved_lp = lp.copy()
+            self._presolve_stack = None
+            self._model_status = HighsModelStatus.kModelEmpty
+            return HighsStatus.kOk
+        result = presolve_lp(lp, self._options)
+        self._presolve_stack = result
+        if result.status in (HighsModelStatus.kInfeasible,
+                             HighsModelStatus.kUnbounded,
+                             HighsModelStatus.kUnboundedOrInfeasible):
+            self._model_status = result.status
+            self._presolved_lp = None
+            return HighsStatus.kOk
+        self._presolved_lp = result.reduced_lp
+        return HighsStatus.kOk
+
+    def getPresolvedLp(self):
+        return getattr(self, "_presolved_lp", None)
+
+    def getPresolvedNumCol(self) -> int:
+        lp = self.getPresolvedLp()
+        return lp.num_col if lp is not None else -1
+
+    def getPresolvedNumRow(self) -> int:
+        lp = self.getPresolvedLp()
+        return lp.num_row if lp is not None else -1
+
+    def getPresolvedNumNz(self) -> int:
+        lp = self.getPresolvedLp()
+        return lp.num_nz if lp is not None else -1
+
+    def postsolve(self, solution, basis=None) -> HighsStatus:
+        """Map a solution of the presolved model back to the full model
+        (reference Highs::postsolve)."""
+        stack = getattr(self, "_presolve_stack", None)
+        if stack is None:
+            return HighsStatus.kError
+        from .presolve.presolve import postsolve_lp
+        full_solution, full_basis = postsolve_lp(
+            self._model.lp, stack, solution, basis=basis)
+        self._solution = full_solution
+        if full_basis is not None:
+            self._basis = full_basis
+        self._fill_info_lp(self._model.lp, object())
         return HighsStatus.kOk

@@ -158,17 +158,18 @@ def _pattern_key(a: SparseK) -> tuple:
 
 
 class PhaseClock:
-    """Seconds spent in the Newton phases of an IPM solve: "normal"
-    (forming the normal matrix), "factor" and "solve" (both Newton
-    solves of an iteration).  On a CUDA device a phase is timed by CUDA
-    events on the current stream, read after the iteration's metrics
-    reach the host; elsewhere by the host clock."""
+    """Seconds spent in the named phases of an IPM solve, by default the
+    Newton phases of the LP IPM: "normal" (forming the normal matrix),
+    "factor" and "solve" (both Newton solves of an iteration).  On a
+    CUDA device a phase is timed by CUDA events on the current stream,
+    read after the iteration's metrics reach the host; elsewhere by the
+    host clock."""
 
     PHASES = ("normal", "factor", "solve")
 
-    def __init__(self, device):
+    def __init__(self, device, phases=PHASES):
         self.cuda = torch.device(device).type == "cuda"
-        self.seconds = dict.fromkeys(self.PHASES, 0.0)
+        self.seconds = dict.fromkeys(phases, 0.0)
         self._events = []
 
     @contextlib.contextmanager

@@ -24,6 +24,10 @@ from highs_tpu_torch.solvers.pdlp.batch import solve_lp_batch
 from highs_tpu_torch.solvers.ipm.banded_chol import BandedCholesky
 from highs_tpu_torch.solvers.ipm.solver import (IpmProblem, IpmState,
                                                 solve_lp_ipm_native)
+from highs_tpu_torch.solvers.qp.ipm_qp import (QpIpmProblem, QpIpmState,
+                                               solve_qp_ipm)
+from highs_tpu_torch.solvers.qp.wrapper import solve_qp
+from highs_tpu_torch.utils.gen_mm_qp import mm_qp_model
 
 # the tests run in parallel worker processes on shared cores: torch's
 # own thread pool in each of them would oversubscribe the machine
@@ -60,6 +64,12 @@ def test_import_leaves_jax_and_highs_tpu_out():
         "import highs_tpu_torch.tools.lp_anchors\n"
         "import highs_tpu_torch.tools.profile_block64k\n"
         "import highs_tpu_torch.utils.gen_grid_flow_lp\n"
+        "import highs_tpu_torch.utils.gen_mm_qp\n"
+        "import highs_tpu_torch.solvers.qp.ipm_qp\n"
+        "import highs_tpu_torch.solvers.qp.active_set\n"
+        "import highs_tpu_torch.solvers.qp.wrapper\n"
+        "import highs_tpu_torch.model_api\n"
+        "import highs_tpu_torch.io.solution_writer\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'highs_tpu' or m.startswith('highs_tpu.')]\n"
         "print(','.join(bad))\n")
@@ -182,6 +192,17 @@ CONSTRUCTORS = {
     "ipm.solver.solve_lp_ipm_native":
         lambda: solve_lp_ipm_native(_LP, HighsOptions()),
     "icrash.run_icrash": lambda: run_icrash(_LP, HighsOptions()),
+    "convert.qp_ipm_problem_from_numpy":
+        lambda: convert.qp_ipm_problem_from_numpy(
+            {f: np.eye(2) if f in ("a", "q") else np.zeros(2)
+             for f in QpIpmProblem._fields}),
+    "convert.qp_ipm_state_from_numpy":
+        lambda: convert.qp_ipm_state_from_numpy(
+            {f: np.zeros(2) for f in QpIpmState._fields}),
+    "qp.ipm_qp.solve_qp_ipm":
+        lambda: solve_qp_ipm(mm_qp_model(1, 6, 3), HighsOptions()),
+    "qp.wrapper.solve_qp":
+        lambda: solve_qp(mm_qp_model(1, 6, 3), HighsOptions()),
 }
 
 
@@ -192,3 +213,19 @@ def test_constructors_default_to_cuda(monkeypatch, name):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         CONSTRUCTORS[name]()
+
+
+@pytest.mark.parametrize("solver", ["choose", "qpasm"])
+def test_qp_run_raises_without_a_card(monkeypatch, solver):
+    """A facade made for CUDA raises when its QP runs without a card: the
+    QP path, the active set's IPM fallback included, never moves to the
+    CPU on its own."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    h = highs_tpu_torch.Highs()
+    assert h.device == torch.device("cuda")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    h.setOptionValue("output_flag", False)
+    h.setOptionValue("solver", solver)
+    h.passModel(mm_qp_model(1, 6, 3))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        h.run()
