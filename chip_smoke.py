@@ -113,7 +113,37 @@ Phases, each of which fails the run (non-zero exit) when it fails:
             qp_status a seeded infeasible and a seeded unbounded QP through
                       `Highs().run()`: kInfeasible and kUnbounded, their
                       classification LPs factored on the card; an MIQP
-                      gives kError.
+                      gives kError;
+15. mip      the MIP path (branch-and-cut on the host; node relaxations
+            above 10,000 rows and the root's central rounding on the
+            card), each run through `Highs().run()` with the default
+            options and a `time_limit` (`utils/gen_mip.py`; the anchors
+            are scipy 1.17's proven optima, `tools/mip_anchors.py`):
+            mip_setcover  set covering 500 x 1,000, density 0.05, seed 0
+                      (Gasse et al. 2019's easy size: this generator's
+                      seed-0 instance at their medium size is not proven
+                      within the limit, PERF.md), time_limit 300:
+                      kOptimal, the objective within mip_rel_gap of
+                      the anchor, integrality violation and every row and
+                      bound of the model's data <= 1e-6 in f64; it prints
+                      nodes, LP iterations, seconds, the root bound after
+                      cuts, the cut rounds and the IPM factors by device;
+            mip_cfl   capacitated facility location, 100 customers x 100
+                      facilities (10,201 rows: the presolved relaxation has
+                      more than 10,000 rows, so every node LP goes to the
+                      IPM with its iterate on the card and its normal
+                      matrix factored dense there), time_limit 300:
+                      kOptimal within mip_rel_gap of the anchor, or
+                      kTimeLimit with a feasible incumbent and dual bound <=
+                      anchor <= incumbent (1e-6 slack); at least one IPM
+                      solve on the card, and `run()` back within time_limit
+                      + 30 s; it prints the status, nodes, gap, IPM solves
+                      and factors by device and the mean ms per node LP;
+            mip_small a semi-continuous MIP, an SOS1 MIP, an equality
+                      knapsack program whose root reaches central rounding
+                      (its analytic-centre IPM solve on the card) and an
+                      infeasible MIP: the statuses and, where optimal, the
+                      objectives of scipy's `milp` on the card's host.
 
 Kernel times (`ms`, `plain_ms`, `library_ms`) are device times with a
 cold L2, as the PDLP loop finds its operator (`tools/card.py`
@@ -1076,6 +1106,296 @@ def qp_phase(device):
     return out
 
 
+MIP_TIME_LIMIT = 300.0
+MIP_FEAS_TOL = 1e-6
+# the MipRunInfo of each outermost MIP solve (`record_mip_runs`): its LP
+# iterations are not in the facade's info
+_MIP_RUNS = []
+
+
+def mip_counts():
+    """The IPM's solves and factors by device and engine so far."""
+    from highs_tpu_torch.solvers.ipm import banded_chol, solver
+    return {"ipm_solves": dict(solver.SOLVES),
+            "dense_factors": dict(solver.DENSE_FACTORS),
+            "banded_factors": dict(banded_chol.FACTORS),
+            "host_factors": dict(solver.HOST_FACTORS),
+            "ipm_routes": dict(solver.ROUTES)}
+
+
+def mip_count_delta(after, before):
+    return {k: {e: after[k][e] - before[k][e] for e in after[k]}
+            for k in after}
+
+
+def record_mip_runs():
+    """Wrap the MIP solver so that the outermost solve's MipRunInfo is
+    kept (sub-MIPs and restarts call it again)."""
+    from highs_tpu_torch.solvers.mip import solver
+    inner = solver.solve_mip
+    depth = [0]
+
+    def wrapped(*args, **kwargs):
+        depth[0] += 1
+        try:
+            out = inner(*args, **kwargs)
+        finally:
+            depth[0] -= 1
+        if depth[0] == 0:
+            _MIP_RUNS.append(out[2])
+        return out
+    solver.solve_mip = wrapped
+
+
+def model_violation(d, x):
+    """Largest violation of the model's rows and bounds by x, in f64, from
+    its data alone (absolute)."""
+    import numpy as np
+    import scipy.sparse as sp
+    a = sp.csc_matrix((d["a_value"], d["a_index"], d["a_start"]),
+                      shape=(d["num_row"], d["num_col"]))
+    ax = a @ x
+
+    def excess(v, lo, up):
+        return np.maximum(np.where(np.isfinite(lo), lo - v, 0.0),
+                          np.where(np.isfinite(up), v - up, 0.0))
+    return float(max(np.max(excess(ax, d["row_lower"], d["row_upper"]),
+                            initial=0.0),
+                     np.max(excess(x, d["col_lower"], d["col_upper"]),
+                            initial=0.0)))
+
+
+def finite(value):
+    """A float for the summary line, None where it is not finite (the
+    line stays strict JSON)."""
+    value = float(value)
+    return value if math.isfinite(value) else None
+
+
+def mip_solve(name, d, device, options=None):
+    """One MIP (a `gen_mip` dict) through the facade on `device`; returns
+    (facade, record) with the run's nodes, LP iterations, root cut
+    rounds, the IPM's work by device and the facade's node-LP clock."""
+    import numpy as np
+    import highs_tpu_torch
+    from highs_tpu_torch.convert import lp_from_numpy
+
+    lines = []
+    h = highs_tpu_torch.Highs(device=device)
+    h.setOptionValue("log_to_console", False)
+    h.setLogCallback(lambda _kind, msg: lines.append(msg))
+    for key, val in (options or {}).items():
+        h.setOptionValue(key, val)
+    h.passModel(lp_from_numpy(d))
+    counts0 = mip_counts()
+    runs0 = len(_MIP_RUNS)
+    t0 = time.perf_counter()
+    status = h.run()
+    sync(device)
+    seconds = time.perf_counter() - t0
+    info = h.getInfo()
+    sol = h.getSolution()
+    mip_info = _MIP_RUNS[-1] if len(_MIP_RUNS) > runs0 else None
+    cut_lines = [ln for ln in lines if ln.startswith("MIP root cuts round")]
+    node_lp = h.getTimer().read("mip::node_lp")
+    node_lp_calls = h.getTimer().num_calls("mip::node_lp")
+    rec = dict(
+        status=h.getModelStatus().name, run_status=int(status),
+        objective=h.getObjectiveValue(), seconds=seconds,
+        rows=d["num_row"], cols=d["num_col"],
+        presolved_rows=int(getattr(info, "presolved_num_row", -1)),
+        nodes=int(info.mip_node_count), gap=finite(info.mip_gap),
+        dual_bound=finite(info.mip_dual_bound),
+        integrality_violation=float(info.max_integrality_violation),
+        lp_iterations=(mip_info.iterations if mip_info else None),
+        cut_rounds=len(cut_lines),
+        root_bound_after_cuts=(float(cut_lines[-1].rsplit(" ", 1)[1])
+                               if cut_lines else None),
+        node_lp_seconds=node_lp, node_lp_calls=node_lp_calls,
+        node_lp_mean_ms=(1e3 * node_lp / node_lp_calls
+                         if node_lp_calls else None),
+        ipm=mip_count_delta(mip_counts(), counts0),
+        ipm_clocks={name: (round(h.getTimer().read(name), 4),
+                           h.getTimer().num_calls(name))
+                    for name in ("ipm_setup", "ipm_iterations",
+                                 "ipm_normal", "ipm_factor", "ipm_solve")},
+        violation=(model_violation(d, np.asarray(sol.col_value))
+                   if sol.value_valid else None))
+    log(f"{name}: {d['num_row']} x {d['num_col']} (presolved rows "
+        f"{rec['presolved_rows']}) status {rec['status']} objective "
+        f"{rec['objective']!r} nodes {rec['nodes']} LP iterations "
+        f"{rec['lp_iterations']} gap {rec['gap']} dual bound "
+        f"{rec['dual_bound']!r} seconds {seconds:.2f}; root cut rounds "
+        f"{rec['cut_rounds']} (bound after them "
+        f"{rec['root_bound_after_cuts']}); node LPs "
+        f"{node_lp_calls} in {node_lp:.2f} s; IPM {rec['ipm']}; IPM "
+        f"clocks (s, calls) {rec['ipm_clocks']}")
+    return h, rec
+
+
+def mip_setcover_phase(device, anchors):
+    from highs_tpu_torch.tools.mip_anchors import model
+    h, rec = mip_solve("mip_setcover", model("setcover"), device,
+                       {"time_limit": MIP_TIME_LIMIT})
+    rel_gap = h.getOptionValue("mip_rel_gap")
+    rec["anchor"] = anchors["setcover"]
+    rec["rel_obj"] = abs(rec["objective"] - rec["anchor"]) / max(
+        1.0, abs(rec["anchor"]))
+    log(f"mip_setcover: objective {rec['objective']!r} against scipy's "
+        f"proven {rec['anchor']!r}: rel {rec['rel_obj']:.3e} (limit "
+        f"mip_rel_gap {rel_gap:g}); integrality violation "
+        f"{rec['integrality_violation']:.3e}, rows and bounds "
+        f"{rec['violation']} (limit {MIP_FEAS_TOL:g})")
+    if rec["status"] != "kOptimal" or not rec["rel_obj"] <= rel_gap or \
+            not rec["integrality_violation"] <= MIP_FEAS_TOL or \
+            not rec["violation"] <= MIP_FEAS_TOL:
+        raise RuntimeError(f"mip_setcover: {rec}")
+    return rec
+
+
+def mip_cfl_phase(device, anchors):
+    from highs_tpu_torch.presolve.presolve import presolve_lp
+    from highs_tpu_torch.convert import lp_from_numpy
+    from highs_tpu_torch.options import HighsOptions
+    from highs_tpu_torch.tools.mip_anchors import model
+    d = model("cfl")
+    reduced = presolve_lp(lp_from_numpy(d), HighsOptions()).reduced_lp
+    log(f"mip_cfl: {d['num_row']} rows, {reduced.num_row} after presolve "
+        f"(the simplex gate is 10,000)")
+    if not reduced.num_row > 10000:
+        raise RuntimeError("mip_cfl: the presolved relaxation is under the "
+                           "10,000-row gate")
+    h, rec = mip_solve("mip_cfl", d, device, {"time_limit": MIP_TIME_LIMIT})
+    rel_gap = h.getOptionValue("mip_rel_gap")
+    anchor = rec["anchor"] = anchors["cfl"]
+    rec["rel_obj"] = abs(rec["objective"] - anchor) / max(1.0, abs(anchor))
+    slack = 1e-6 * max(1.0, abs(anchor))
+    if rec["status"] == "kOptimal":
+        ok = rec["rel_obj"] <= rel_gap
+    else:
+        ok = (rec["status"] == "kTimeLimit" and rec["violation"] is not None
+              and rec["dual_bound"] is not None
+              and rec["dual_bound"] <= anchor + slack
+              and anchor <= rec["objective"] + slack)
+    ok = ok and rec["violation"] is not None and \
+        rec["violation"] <= MIP_FEAS_TOL and \
+        rec["integrality_violation"] <= MIP_FEAS_TOL
+    on_card = rec["ipm"]["ipm_solves"].get(device.type, 0)
+    # the relaxation's M fills 65% of its triangle under the LDL'
+    # ordering, so the IPM's fill gate sends its solves to "dense_m"
+    dense_m = rec["ipm"]["ipm_routes"]["dense_m"]
+    overrun = rec["seconds"] - MIP_TIME_LIMIT
+    log(f"mip_cfl: {rec['status']} objective {rec['objective']!r} dual "
+        f"bound {rec['dual_bound']!r} against scipy's proven {anchor!r}; "
+        f"IPM solves on {device.type} {on_card} (routes "
+        f"{rec['ipm']['ipm_routes']}); mean node LP "
+        f"{rec['node_lp_mean_ms']} ms; run() {rec['seconds']:.1f} s "
+        f"against a time_limit of {MIP_TIME_LIMIT:g} s")
+    if not ok or not on_card or not dense_m or overrun > 30.0:
+        raise RuntimeError(f"mip_cfl: {rec}")
+    return rec
+
+
+def semi_mip():
+    """min 0.4 x + y s.t. x + y >= 2, x semi-continuous in {0} or [3, 10],
+    0 <= y <= 5: the relaxation's x = 2 is not allowed (optimum 1.2)."""
+    import numpy as np
+    import scipy.sparse as sp
+    a = sp.csc_matrix(np.array([[1.0, 1.0]]))
+    return dict(num_col=2, num_row=1, col_cost=np.array([0.4, 1.0]),
+                col_lower=np.array([3.0, 0.0]),
+                col_upper=np.array([10.0, 5.0]), row_lower=np.array([2.0]),
+                row_upper=np.array([np.inf]), a_start=a.indptr,
+                a_index=a.indices, a_value=a.data,
+                integrality=np.array([2, 0], dtype=np.uint8))
+
+
+def scipy_objective(d):
+    from highs_tpu_torch.tools.mip_anchors import scipy_milp
+    status, obj, _, _ = scipy_milp(d, time_limit=60.0)
+    if status != 0:
+        raise RuntimeError(f"scipy's milp: status {status}")
+    return float(obj)
+
+
+def mip_small_phase(device):
+    import numpy as np
+    import highs_tpu_torch
+    import scipy.sparse as sp
+    from highs_tpu_torch.utils.gen_mip import equality_knapsacks
+    out = {}
+    # semi-continuous
+    d = semi_mip()
+    _, rec = mip_solve("mip_semi", d, device)
+    rec["anchor"] = scipy_objective(d)
+    if rec["status"] != "kOptimal" or \
+            abs(rec["objective"] - rec["anchor"]) > 1e-6:
+        raise RuntimeError(f"mip_semi: {rec}")
+    out["semi"] = rec
+    # SOS1: max x1 + x2 + x3, each <= 1, at most one nonzero
+    lp = highs_tpu_torch.HighsLp(
+        num_col=3, num_row=1, col_cost=np.array([-1.0, -1.0, -1.0]),
+        col_lower=np.zeros(3), col_upper=np.ones(3),
+        row_lower=np.array([-np.inf]), row_upper=np.array([10.0]),
+        a_matrix=highs_tpu_torch.HighsSparseMatrix.from_scipy(
+            sp.csc_matrix(np.ones((1, 3)))),
+        sos=[("S1", 0, [0, 1, 2], [1.0, 2.0, 3.0])])
+    h = highs_tpu_torch.Highs(device=device)
+    h.setOptionValue("output_flag", False)
+    h.passModel(lp)
+    h.run()
+    x = np.asarray(h.getSolution().col_value)
+    rec = {"status": h.getModelStatus().name,
+           "objective": h.getObjectiveValue(),
+           "nonzeros": int(np.sum(np.abs(x) > 1e-6))}
+    log(f"mip_sos1: {rec}")
+    if rec["status"] != "kOptimal" or abs(rec["objective"] + 1.0) > 1e-9 \
+            or rec["nonzeros"] > 1:
+        raise RuntimeError(f"mip_sos1: {rec}")
+    out["sos1"] = rec
+    # central rounding: the root has no incumbent after its roundings,
+    # so the analytic centre is computed by the IPM on the card
+    d = equality_knapsacks(4, 20, seed=0)
+    _, rec = mip_solve("mip_central", d, device)
+    rec["anchor"] = scipy_objective(d)
+    solves = rec["ipm"]["ipm_solves"].get(device.type, 0)
+    factors = rec["ipm"]["dense_factors"].get(device.type, 0)
+    log(f"mip_central: IPM solves on {device.type} {solves}, dense factors "
+        f"{factors}; objective {rec['objective']!r} against scipy's "
+        f"{rec['anchor']!r}")
+    if rec["status"] != "kOptimal" or \
+            abs(rec["objective"] - rec["anchor"]) > 1e-6 or not solves \
+            or not factors:
+        raise RuntimeError(f"mip_central: {rec}")
+    out["central"] = rec
+    # infeasible: 1.6 <= x + y <= 1.8 over binaries
+    a = sp.csc_matrix(np.array([[1.0, 1.0]]))
+    d = dict(num_col=2, num_row=1, col_cost=np.ones(2),
+             col_lower=np.zeros(2), col_upper=np.ones(2),
+             row_lower=np.array([1.6]), row_upper=np.array([1.8]),
+             a_start=a.indptr, a_index=a.indices, a_value=a.data,
+             integrality=np.ones(2, dtype=np.uint8))
+    _, rec = mip_solve("mip_infeasible", d, device)
+    if rec["status"] != "kInfeasible":
+        raise RuntimeError(f"mip_infeasible: {rec}")
+    out["infeasible"] = rec
+    return out
+
+
+def mip_phase(device):
+    """Phase 15: the MIP path, with the kernels' launch counts around it."""
+    from highs_tpu_torch.tools.mip_anchors import load
+    anchors = load()
+    record_mip_runs()
+    reset_launches()
+    out = {"mip_setcover": mip_setcover_phase(device, anchors),
+           "mip_cfl": mip_cfl_phase(device, anchors),
+           "mip_small": mip_small_phase(device)}
+    out["kernel_launches"] = read_launches()
+    log(f"mip: kernel launches on the MIP path {out['kernel_launches']}")
+    return out
+
+
 def headline(records, launches, extra=None):
     """One kernel's line: the f32 records (the main path's type), the
     mean of its directions."""
@@ -1173,6 +1493,7 @@ def main() -> int:
     batch = run("batch", batch_phase, device)
     simplex = run("simplex", simplex_phase, device)
     qp = run("qp", qp_phase, device)
+    mip = run("mip", mip_phase, device)
 
     probe_head = [r for r in probe_records
                   if r["name"] == gather_probe.SHAPES[0][0]]
@@ -1200,7 +1521,7 @@ def main() -> int:
         for name in ("block_csr_spmv", "onehot_spmv", "gather_probe")],
         "formats": formats, "synth50k_seconds": oh_seconds, "ipm": ipm,
         "block64k_avg_seconds": avg_seconds, "batch": batch,
-        "simplex": simplex, "qp": qp,
+        "simplex": simplex, "qp": qp, "mip": mip,
         "phase_seconds": phase_s,
         "total_seconds": time.perf_counter() - t_start}
     log(json.dumps(summary))

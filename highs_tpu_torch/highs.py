@@ -3,11 +3,12 @@
 Equivalent of the reference `class Highs` (highs/Highs.h:43,
 lp_data/Highs.cpp): pass/read a model, set options, `run()`, query
 solution / info / status.  `run()` solves an LP through presolve and the
-LP dispatch, and a convex QP through the QP solvers, on the torch device
-given to the constructor (default CUDA); the simplex, crossover and the
-QP active set run on the host.  The model-editing methods come from
-`HighsModelApi` (model_api.py).  MIP models, `.lp` files and the
-analysis methods of the JAX package's facade are not ported yet.
+LP dispatch, a convex QP through the QP solvers and a MIP through
+presolve and branch-and-cut, on the torch device given to the
+constructor (default CUDA); the simplex, crossover, the QP active set
+and the MIP search run on the host.  The model-editing methods come
+from `HighsModelApi` (model_api.py).  `.lp` files and the analysis
+methods of the JAX package's facade are not ported yet.
 """
 from __future__ import annotations
 
@@ -431,8 +432,7 @@ class Highs(HighsModelApi):
             return HighsStatus.kError
 
         if self._model.is_mip() and not self._options.solve_relaxation:
-            raise NotImplementedError(
-                "MIP models are not yet ported (ROADMAP queue 1 item 7)")
+            return self._call_solve_mip()
         if self._model.is_qp():
             return self._call_solve_qp()
         return self._call_solve_lp()
@@ -479,12 +479,77 @@ class Highs(HighsModelApi):
         self._info.qp_iteration_count = qp_info.iterations
         return HighsStatus.kOk
 
+    def _call_solve_mip(self) -> HighsStatus:
+        from .presolve.presolve import postsolve_lp, presolve_lp
+        from .solvers.mip.solver import solve_mip
+        lp_orig = self._model.lp
+        lp = lp_orig
+        # bounded semi variables reformulate to binary + variable-bound
+        # rows (reference HPresolve; see presolve/semi.py) so the
+        # standard MIP machinery applies
+        semi_expand = None
+        if lp.has_semi_variables():
+            from .presolve.semi import reformulate_semi_variables
+            semi_expand = reformulate_semi_variables(lp)
+            if semi_expand is not None:
+                lp = semi_expand.lp
+        presolve_result = None
+        # presolve has no SOS awareness: reductions could silently drop
+        # or remap set members, so SOS models solve un-presolved
+        if self._options.presolve != "off" and not getattr(lp, "sos",
+                                                           None):
+            presolve_result = presolve_lp(lp, self._options)
+            if presolve_result.status in (
+                    HighsModelStatus.kInfeasible,
+                    HighsModelStatus.kUnbounded,
+                    HighsModelStatus.kUnboundedOrInfeasible):
+                self._model_status = presolve_result.status
+                self._info.valid = True
+                return HighsStatus.kOk
+            mip_lp = presolve_result.reduced_lp
+        else:
+            mip_lp = lp
+        # the debug solution file lives in the ORIGINAL column space:
+        # project it through presolve for the reduced-space tracer
+        # (reference: HighsDebugSol is registered before presolve and
+        # mapped through each reduction)
+        self._options._mip_debug_x = None
+        if self._options.mip_debug_solution_file and \
+                presolve_result is not None and presolve_result.reduced:
+            from .solvers.mip.debug_sol import DebugSolution
+            dbg = DebugSolution.load(
+                self._options.mip_debug_solution_file, lp, log=self._log)
+            if dbg is not None:
+                self._options._mip_debug_x = \
+                    dbg.x[presolve_result.keep_cols]
+        status, solution, mip_info = solve_mip(
+            mip_lp, self._options, log=self._log,
+            callbacks=self._callbacks, device=self._device)
+        self._info.presolved_num_col = mip_lp.num_col
+        self._info.presolved_num_row = mip_lp.num_row
+        self._info.presolved_num_nz = mip_lp.a_matrix.num_nz
+        if presolve_result is not None and presolve_result.reduced and \
+                solution.value_valid:
+            solution, _ = postsolve_lp(lp, presolve_result, solution)
+        if semi_expand is not None and solution.value_valid:
+            # strip the auxiliary binaries / variable-bound rows
+            solution.col_value = solution.col_value[
+                :semi_expand.n_orig_col]
+            if len(solution.row_value):
+                solution.row_value = solution.row_value[
+                    :semi_expand.n_orig_row]
+        self._model_status = status
+        self._solution = solution
+        self._fill_info_lp(lp_orig, mip_info)
+        return HighsStatus.kOk
+
     def _fill_info_lp(self, lp: HighsLp, lp_info, hessian=None):
         self._info.invalidate()
         self._info.valid = True
         for attr in ("simplex_iteration_count", "ipm_iteration_count",
                      "crossover_iteration_count", "pdlp_iteration_count",
-                     "qp_iteration_count"):
+                     "qp_iteration_count", "mip_node_count",
+                     "mip_dual_bound", "mip_gap"):
             if hasattr(lp_info, attr):
                 setattr(self._info, attr, getattr(lp_info, attr))
         if self._solution.value_valid:

@@ -406,8 +406,11 @@ _opt("tpu_mesh_shape", str, "",
 _opt("tpu_batch_solve", bool, False,
      "Batch multiple instances through vmapped solves")
 _opt("tpu_ipm_newton", str, "choose",
-     "IPM normal-equations solver: choose / cholesky / cg "
-     "(cg = matrix-free Jacobi-preconditioned conjugate gradients)")
+     "IPM normal-equations solver: choose / cholesky / cg / ldl / "
+     "dense_m (cg = matrix-free Jacobi-preconditioned conjugate "
+     "gradients; ldl = normal matrix factored sparse on the host; "
+     "dense_m = normal matrix assembled sparse, factored dense on the "
+     "solver's device)")
 _opt("tpu_mip_native_search", bool, True,
      "Run the MIP tree search in the native C++ dive loop "
      "(hx_mip_solve): ~100x node throughput of the Python loop, with "

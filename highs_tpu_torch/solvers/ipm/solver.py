@@ -9,7 +9,7 @@ equations
 
 on the standard form produced by the PDHG preprocessor (equality rows
 first, inequality rows get a surplus slack s >= 0, so the slack block
-contributes only a diagonal on inequality rows).  Three routes:
+contributes only a diagonal on inequality rows).  Four routes:
 
   "chol"  K Theta K' formed dense in f64 (`torch.matmul`, the FP64
           tensor cores on an H100) and factored by a dense Cholesky, on
@@ -20,7 +20,11 @@ contributes only a diagonal on inequality rows).  Three routes:
           Cholesky on the device (`banded_chol.py`) where M is banded
           and well enough conditioned, else SuperLU, else the native
           LDL' (`sparse_ldl.py`).  The iterate and the products with K
-          stay on the device (K as sparse CSR tensors, `SparseK`).
+          stay on the device (K as sparse CSR tensors, `SparseK`);
+  "dense_m" M is assembled sparse on the host as on the "ldl" route, then
+          factored by a dense Cholesky on the solver's device: the
+          route `choose` takes instead of "ldl" where the LDL' factor
+          would fill in (`DENSE_M_FILL`).
 
 One iteration: residuals -> Theta -> M -> factor -> predictor solve ->
 affine steps -> mu_aff -> sigma = (mu_aff/mu)^3 -> corrector solve (same
@@ -130,6 +134,13 @@ class IpmSettings:
 # the kernels' launch counters, so that a run can show that its dense
 # route ran on the card
 DENSE_FACTORS = {"cuda": 0, "cpu": 0}
+# IPM solves by the device type of their iterate, and the host factors of
+# the "ldl" route by engine, read the same way (the MIP's node LPs above
+# its simplex gate land here)
+SOLVES = {"cuda": 0, "cpu": 0}
+HOST_FACTORS = {"superlu": 0, "ldl": 0}
+# IPM solves by the Newton route their iterations ran
+ROUTES = {"chol": 0, "cg": 0, "ldl": 0, "dense_m": 0}
 
 # persistent factor handles of the "ldl" route, keyed by the sparsity
 # pattern of K (`_pattern_key`): the normal matrix's pattern is constant
@@ -147,13 +158,25 @@ _BANDED_GATED: set = set()
 # from this many rows of M the "ldl" route tries the banded device
 # factor, then SuperLU; the native LDL' takes smaller ones
 LARGE_M_ROWS = 20000
+# below `LARGE_M_ROWS` rows, `choose` takes the "dense_m" route in place
+# of "ldl" where the symbolic LDL' factor of M would fill more than this
+# share of its lower triangle.  A sparse factor costs about the share
+# squared of the dense one's operations, but at the host's scalar rate:
+# on an H100 the dense route won at every fill measured (0.49% to 65%,
+# `tools/ipm_route_probe.py`, PERF.md); a host CPU's dense Cholesky has
+# no such rate, so the share keeps low-fill LPs on the LDL' for its sake
+DENSE_M_FILL = 0.25
+# whether M's LDL' factor fills in (`_fills_in`), by the pattern of K,
+# for the last 16 patterns: the MIP's node LPs share one pattern, so its
+# analysis runs once for all of them
+_FILL_CACHE: dict = {}
 
 
-def _pattern_key(a: SparseK) -> tuple:
-    """The sparsity pattern of K as a cache key."""
+def _pattern_key(a: sp.csr_matrix) -> tuple:
+    """The sparsity pattern of a CSR copy of K as a cache key."""
     digest = hashlib.blake2b(digest_size=16)
-    digest.update(np.ascontiguousarray(a.host.indptr).tobytes())
-    digest.update(np.ascontiguousarray(a.host.indices).tobytes())
+    digest.update(np.ascontiguousarray(a.indptr).tobytes())
+    digest.update(np.ascontiguousarray(a.indices).tobytes())
     return a.shape, digest.hexdigest()
 
 
@@ -308,6 +331,52 @@ def _cg_newton(problem: IpmProblem, theta, theta_x, diag_extra, reg_d):
     return lambda rhs_y: pcg(mdot, rhs_y, precond)
 
 
+def _dense_on_device(mat: sp.spmatrix, device) -> torch.Tensor:
+    """A host sparse matrix as a dense f64 matrix on `device`."""
+    coo = mat.tocoo()
+    out = torch.zeros(coo.shape, dtype=F64, device=device)
+    rows = torch.as_tensor(coo.row.astype(np.int64), device=device)
+    cols = torch.as_tensor(coo.col.astype(np.int64), device=device)
+    out.index_put_((rows, cols), torch.as_tensor(coo.data, dtype=F64,
+                                                  device=device),
+                   accumulate=True)
+    return out
+
+
+def _dense_solver(mat: sp.spmatrix, device):
+    """Solves with a host sparse SPD matrix through its dense Cholesky
+    on `device` and one step of refinement there; a failed factor gives
+    NaN, which the IPM's regularization escalation answers."""
+    dense = _dense_on_device(mat, device)
+    chol = cholesky(dense)
+    DENSE_FACTORS[torch.device(device).type] += 1
+
+    def solve(rhs: torch.Tensor) -> torch.Tensor:
+        x = cho_solve(chol, rhs)
+        return x + cho_solve(chol, rhs - dense @ x)
+    return solve
+
+
+def _host_normal(problem: IpmProblem, theta_x, diag_extra,
+                 phase) -> sp.csc_matrix:
+    """M = K Theta_x K' + D assembled sparse on the host from the scipy
+    copy of K; its pattern is constant across iterations."""
+    a = problem.a.host
+    with phase("normal"):
+        aw = a.multiply(_host(theta_x)[None, :]).tocsr()
+        mmat = (aw @ a.T + sp.diags(_host(diag_extra))).tocsc()
+        mmat.sum_duplicates()
+    return mmat
+
+
+def _dense_m_newton(problem: IpmProblem, theta_x, diag_extra, phase):
+    """The "dense_m" route: M assembled on the host, factored dense on
+    the iterate's device."""
+    mmat = _host_normal(problem, theta_x, diag_extra, phase)
+    with phase("factor"):
+        return _dense_solver(mmat, theta_x.device)
+
+
 def _sparse_newton(problem: IpmProblem, theta_x, diag_extra, reg_d,
                    phase):
     """The "ldl" route: M is built sparse on the host, with a CONSTANT
@@ -319,12 +388,8 @@ def _sparse_newton(problem: IpmProblem, theta_x, diag_extra, reg_d,
     62.5k grid-flow normal matrix in the JAX package's measurement); the
     native LDL' (the rest, and where SuperLU fails)."""
     device = theta_x.device
-    key = _pattern_key(problem.a)
-    a = problem.a.host
-    with phase("normal"):
-        aw = a.multiply(_host(theta_x)[None, :]).tocsr()
-        mmat = (aw @ a.T + sp.diags(_host(diag_extra))).tocsc()
-        mmat.sum_duplicates()
+    key = _pattern_key(problem.a.host)
+    mmat = _host_normal(problem, theta_x, diag_extra, phase)
     h = None
     banded = None
     splu = None
@@ -361,6 +426,7 @@ def _sparse_newton(problem: IpmProblem, theta_x, diag_extra, reg_d,
             if banded is None:
                 try:
                     splu = spla.splu(mmat)
+                    HOST_FACTORS["superlu"] += 1
                 except RuntimeError:  # exactly singular
                     splu = None
                 # a successful but near-singular factor can return
@@ -371,15 +437,12 @@ def _sparse_newton(problem: IpmProblem, theta_x, diag_extra, reg_d,
         if banded is None and splu is None:
             h = _LDL_CACHE.get(key)
             if h is None or not h.matches(mmat):
-                # budget ~ 60x the pattern: past that a direct factor
-                # loses to iterating, and the ordering cost blows up
-                h = SparseLdl(mmat,
-                              max_work=80 * mmat.nnz + 1_000_000,
-                              max_fill=60 * mmat.nnz + 1_000_000)
+                h = _ldl_of_gram(mmat)
                 _LDL_CACHE.clear()
                 _LDL_CACHE[key] = h
             else:
                 h.factor(mmat, reg_floor=max(1e-12, reg_d))
+            HOST_FACTORS["ldl"] += 1
 
     if banded is not None:
         # the band-matvec refinement runs on the device: each Newton rhs
@@ -421,8 +484,8 @@ def ipm_step(problem: IpmProblem, state: IpmState, regs,
     `regs` = (reg_primal, reg_dual), escalated by `solve_lp_ipm_native`
     on a Cholesky breakdown.  `settings` = (sigma_min, sigma_max, ftb,
     theta_max).  `newton` picks the normal-equations solver ("chol",
-    "cg" or "ldl", module docstring).  `clock` times the Newton
-    phases."""
+    "cg", "ldl" or "dense_m", module docstring).  `clock` times the
+    Newton phases."""
     def phase(name):
         return clock.phase(name) if clock is not None else \
             contextlib.nullcontext()
@@ -450,6 +513,8 @@ def ipm_step(problem: IpmProblem, state: IpmState, regs,
     if newton == "ldl":
         solve_m = _sparse_newton(problem, theta_x, diag_extra, reg_d,
                                  phase)
+    elif newton == "dense_m":
+        solve_m = _dense_m_newton(problem, theta_x, diag_extra, phase)
     elif newton == "chol":
         solve_m = _dense_newton(problem, theta_x, diag_extra, phase)
     else:
@@ -588,16 +653,52 @@ def _host_gram(problem: IpmProblem) -> sp.spmatrix:
     return a @ a.T + sp.diags(_host(problem.slack_mask) + 1e-8)
 
 
+def _ldl_of_gram(gram: sp.csc_matrix) -> SparseLdl:
+    """The native LDL' of K K' (+ diagonal) under the "ldl" route's
+    budget: about 60x the pattern, past which a direct factor loses to
+    iterating and the ordering cost blows up (raises LdlBlowup)."""
+    return SparseLdl(gram, max_work=80 * gram.nnz + 1_000_000,
+                     max_fill=60 * gram.nnz + 1_000_000)
+
+
+def _fills_in(a: sp.csr_matrix) -> bool:
+    """Whether the LDL' factor of M = K Theta K' + D fills more than
+    `DENSE_M_FILL` of its lower triangle, from the symbolic analysis of
+    K's pattern alone.  The minimum-degree ordering's work is the count
+    of the factor's entries so far, so capping it there stops the
+    analysis as soon as the answer is known; where M itself is that
+    dense no ordering runs.  Cached by the pattern."""
+    a = sp.csr_matrix(a)
+    key = _pattern_key(a)
+    if key not in _FILL_CACHE:
+        pat = sp.csr_matrix((np.ones(a.nnz), a.indices, a.indptr),
+                            shape=a.shape)
+        m = a.shape[0]
+        gram = (pat @ pat.T + sp.identity(m)).tocsc()
+        gram.sum_duplicates()
+        cap = int(DENSE_M_FILL * m * (m + 1) / 2)
+        fills = (gram.nnz + m) // 2 > cap
+        if not fills:
+            try:
+                SparseLdl(gram, max_work=cap, max_fill=cap,
+                          numeric=False).close()
+            except LdlBlowup:
+                fills = True
+        if len(_FILL_CACHE) >= 16:
+            _FILL_CACHE.pop(next(iter(_FILL_CACHE)))
+        _FILL_CACHE[key] = fills
+    return _FILL_CACHE[key]
+
+
 def starting_point_sparse(problem: IpmProblem) -> IpmState:
     """The starting point with K K' factored by the native LDL' (host);
     the handle is cached so the first iteration refactors it in place.
     Raises LdlBlowup on a fill-catastrophic pattern."""
     gram = _host_gram(problem).tocsc()
     gram.sum_duplicates()
-    h = SparseLdl(gram, max_work=80 * gram.nnz + 1_000_000,
-                  max_fill=60 * gram.nnz + 1_000_000)
+    h = _ldl_of_gram(gram)
     _LDL_CACHE.clear()
-    _LDL_CACHE[_pattern_key(problem.a)] = h
+    _LDL_CACHE[_pattern_key(problem.a.host)] = h
     return starting_point(problem, solve_gram=lambda r: torch.as_tensor(
         h.solve(_host(r)), device=r.device))
 
@@ -624,7 +725,7 @@ class IpmRunInfo:
     primal_obj: float = 0.0
     dual_obj: float = 0.0
     solve_time: float = 0.0
-    newton: str = ""  # the route the iterations ran: chol, cg or ldl
+    newton: str = ""  # the route run: chol, cg, ldl or dense_m
 
 
 def _geo_scale_dense(mat: np.ndarray, axis: int) -> np.ndarray:
@@ -687,6 +788,7 @@ def solve_lp_ipm_native(lp: HighsLp, options: HighsOptions, log=None,
             info.primal_obj = float(lp.col_cost @ sol.col_value) + lp.offset
         return status, sol, info
 
+    SOLVES[torch.device(device).type] += 1
     std = preprocess_lp(lp)
     m, n_std = std.num_row, std.num_col
 
@@ -696,7 +798,7 @@ def solve_lp_ipm_native(lp: HighsLp, options: HighsOptions, log=None,
     # a dense copy of K is m x n_std f64: cap the dense working set so a
     # wide (2500 x 5M) or very tall LP never materializes a multi-GB array
     dense_ok = m * max(1, n_std) <= 50_000_000
-    if newton_opt in ("cg", "ldl"):
+    if newton_opt in ("cg", "ldl", "dense_m"):
         newton = newton_opt
     elif newton_opt == "cholesky":
         newton = "chol"
@@ -704,11 +806,16 @@ def solve_lp_ipm_native(lp: HighsLp, options: HighsOptions, log=None,
         newton = "chol"
     elif m <= 60000:
         newton = "ldl"
+        # below the banded engine's size the symbolic analysis decides:
+        # a factor that fills in is cheaper dense on the device
+        if m < LARGE_M_ROWS and _fills_in(std.a):
+            newton = "dense_m"
     else:
         newton = "cg"
     # "sparse_mode": K is never densified (SparseK); the CG route
     # supports sparse K, so large CG solves never densify either
-    sparse_mode = newton == "ldl" or (newton == "cg" and not dense_ok)
+    sparse_mode = newton in ("ldl", "dense_m") or (
+        newton == "cg" and not dense_ok)
 
     # geometric-mean equilibration for numerical stability
     if sparse_mode:
@@ -776,7 +883,10 @@ def solve_lp_ipm_native(lp: HighsLp, options: HighsOptions, log=None,
                    settings.fraction_to_boundary, settings.theta_max))
     regs = np.array([settings.reg_primal, settings.reg_dual])
 
-    if sparse_mode and newton == "ldl":
+    if newton == "dense_m":
+        state = starting_point(problem, solve_gram=_dense_solver(
+            _host_gram(problem), device))
+    elif sparse_mode and newton == "ldl":
         try:
             state = starting_point_sparse(problem)
         except LdlBlowup:
@@ -789,6 +899,7 @@ def solve_lp_ipm_native(lp: HighsLp, options: HighsOptions, log=None,
     else:
         state = starting_point(problem)
     info.newton = newton
+    ROUTES[newton] += 1
 
     # reading these waits for the starting point
     norm_c_h = float(problem.norm_c)

@@ -64,10 +64,12 @@ class SparseLdl:
     with a FIXED sparsity pattern and changing values.
 
     `max_work`/`max_fill` (0 = unlimited) bound the symbolic analysis;
-    LdlBlowup is raised when the budget is exceeded."""
+    LdlBlowup is raised when the budget is exceeded.  With `numeric`
+    false only the analysis runs (`lnnz` is the factor's size), and
+    `factor` must precede `solve`."""
 
     def __init__(self, mat: sp.spmatrix, max_work: int = 0,
-                 max_fill: int = 0):
+                 max_fill: int = 0, numeric: bool = True):
         self._lib = get_lib()
         m = mat.tocsc()
         m.sum_duplicates()
@@ -80,7 +82,8 @@ class SparseLdl:
             raise LdlBlowup(
                 f"symbolic analysis exceeded budget on n={self.n}")
         self.lnnz = int(self._lib.hx_ldl_lnnz(self._h))
-        self.factor(m)
+        if numeric:
+            self.factor(m)
 
     def matches(self, mat: sp.csc_matrix) -> bool:
         return (mat.shape[0] == self.n and

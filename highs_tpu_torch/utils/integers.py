@@ -62,25 +62,18 @@ def _cf_denominators(x: np.ndarray, max_denom: int) -> np.ndarray:
 def integral_scale(values: np.ndarray, deltadown: float = 1e-9,
                    deltaup: float = 1e-9, max_denom: int = 1024,
                    max_scale: float = 1e6) -> Optional[float]:
-    # native fast path (hx_integral_scale): the numpy version below
-    # pays ~0.2ms of small-array op overhead per call, and cut-heavy
-    # MIP roots call this tens of thousands of times
-    try:
-        from ..solvers.mip import native_cuts
-        lib = native_cuts.get_lib()
-    except Exception:
-        lib = None
-    if lib is not None and hasattr(lib, "hx_integral_scale"):
-        import ctypes
-        vals = np.ascontiguousarray(values, dtype=np.float64)
-        s = lib.hx_integral_scale(
-            vals.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
-            len(vals), ctypes.c_double(deltadown),
-            ctypes.c_double(deltaup), ctypes.c_longlong(max_denom),
-            ctypes.c_double(max_scale))
-        return float(s) if s > 0.0 else None
-    return _integral_scale_py(values, deltadown, deltaup, max_denom,
-                              max_scale)
+    """Smallest positive scale s such that s*values are all within
+    [deltadown, deltaup] of integers, or None: the native
+    hx_integral_scale (the numpy version `_integral_scale_py` pays
+    ~0.2ms of small-array op overhead per call, and cut-heavy MIP roots
+    call this tens of thousands of times)."""
+    import ctypes
+    from ..solvers.mip import native_cuts
+    vals = np.ascontiguousarray(values, dtype=np.float64)
+    s = native_cuts.get_lib().hx_integral_scale(
+        vals.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+        len(vals), deltadown, deltaup, max_denom, max_scale)
+    return float(s) if s > 0.0 else None
 
 
 def _integral_scale_py(values: np.ndarray, deltadown: float = 1e-9,

@@ -127,7 +127,9 @@ def test_not_yet_ported_models_raise(tmp_path):
     h.setOptionValue("output_flag", False)
     lp = lp_from_numpy(dict(d, integrality=np.ones(d["num_col"])))
     h.passModel(lp)
-    with pytest.raises(NotImplementedError, match="MIP"):
+    # the MIP runs (tests/test_torch_mip.py); its batched node LPs do not
+    h.setOptionValue("tpu_mip_batch_nodes", 4)
+    with pytest.raises(NotImplementedError, match="item 11"):
         h.run()
     with pytest.raises(NotImplementedError, match="not yet ported"):
         h.readModel(str(tmp_path / "model.lp"))

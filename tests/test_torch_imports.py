@@ -26,7 +26,9 @@ from highs_tpu_torch.solvers.ipm.solver import (IpmProblem, IpmState,
                                                 solve_lp_ipm_native)
 from highs_tpu_torch.solvers.qp.ipm_qp import (QpIpmProblem, QpIpmState,
                                                solve_qp_ipm)
+from highs_tpu_torch.solvers.mip.solver import solve_mip
 from highs_tpu_torch.solvers.qp.wrapper import solve_qp
+from highs_tpu_torch.utils.gen_mip import set_cover
 from highs_tpu_torch.utils.gen_mm_qp import mm_qp_model
 
 # the tests run in parallel worker processes on shared cores: torch's
@@ -70,6 +72,18 @@ def test_import_leaves_jax_and_highs_tpu_out():
         "import highs_tpu_torch.solvers.qp.wrapper\n"
         "import highs_tpu_torch.model_api\n"
         "import highs_tpu_torch.io.solution_writer\n"
+        "import highs_tpu_torch.solvers.mip.solver\n"
+        "import highs_tpu_torch.solvers.mip.cuts\n"
+        "import highs_tpu_torch.solvers.mip.native_cuts\n"
+        "import highs_tpu_torch.solvers.mip.heuristics\n"
+        "import highs_tpu_torch.solvers.mip.implications\n"
+        "import highs_tpu_torch.solvers.mip.feasibility_jump\n"
+        "import highs_tpu_torch.solvers.mip.debug_sol\n"
+        "import highs_tpu_torch.presolve.symmetry\n"
+        "import highs_tpu_torch.presolve.semi\n"
+        "import highs_tpu_torch.utils.gen_mip\n"
+        "import highs_tpu_torch.tools.mip_anchors\n"
+        "import highs_tpu_torch.tools.ipm_route_probe\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'highs_tpu' or m.startswith('highs_tpu.')]\n"
         "print(','.join(bad))\n")
@@ -203,6 +217,9 @@ CONSTRUCTORS = {
         lambda: solve_qp_ipm(mm_qp_model(1, 6, 3), HighsOptions()),
     "qp.wrapper.solve_qp":
         lambda: solve_qp(mm_qp_model(1, 6, 3), HighsOptions()),
+    "mip.solver.solve_mip":
+        lambda: solve_mip(convert.lp_from_numpy(set_cover(10, 20, 0.2)),
+                          HighsOptions()),
 }
 
 

@@ -34,9 +34,10 @@ import torch
 from highs_tpu_torch.constants import HighsModelStatus
 from highs_tpu_torch.convert import (ipm_problem_from_numpy,
                                      ipm_state_from_numpy, lp_from_numpy)
-from highs_tpu_torch.models.lp import HighsLp
+from highs_tpu_torch.models.lp import HighsLp, HighsSparseMatrix
 from highs_tpu_torch.options import HighsOptions
 from highs_tpu_torch.solvers import classify, icrash
+from highs_tpu_torch.solvers.pdlp.preprocess import preprocess_lp
 from highs_tpu_torch.solvers.ipm import banded_chol, solver, wrapper
 from highs_tpu_torch.solvers.ipm.sparse_ldl import LdlBlowup, SparseLdl
 from highs_tpu_torch.utils.gen_grid_flow_lp import grid_flow_lp
@@ -402,6 +403,86 @@ def test_dense_route_on_card_matches_cpu(cuda_device):
     # every iteration factored its normal matrix on the card
     assert solver.DENSE_FACTORS["cuda"] - before["cuda"] >= \
         cinfo.iterations
+
+
+def _dense_factor_run(device):
+    lp = grid_flow_lp(40)
+    opts = {"tpu_ipm_newton": "dense_m"}
+    dense0 = dict(solver.DENSE_FACTORS)
+    host0 = dict(solver.HOST_FACTORS)
+    st, _, info = solver.solve_lp_ipm_native(lp, _options(**opts),
+                                             device=device)
+    kind = torch.device(device).type
+    assert int(st) == int(HighsModelStatus.kOptimal)
+    assert info.newton == "dense_m"
+    # every factor a dense one on the device, none on the host
+    assert solver.DENSE_FACTORS[kind] - dense0[kind] >= info.iterations
+    assert solver.HOST_FACTORS == host0
+    return info
+
+
+def test_dense_factor_on_the_sparse_route(jax_ref):
+    """The "dense_m" route (M assembled sparse on the host as on the
+    "ldl" route, factored dense on the iterate's device) gives the JAX
+    package's "ldl" iterations and objective on the grid flow."""
+    info = _dense_factor_run("cpu")
+    _, _, jinfo = jax_ref.solver.solve_lp_ipm_native(
+        jax_ref.lp(grid_flow_lp(40)),
+        jax_ref.options(tpu_ipm_newton="ldl"))
+    assert abs(info.iterations - jinfo.iterations) <= 1
+    assert abs(info.primal_obj - jinfo.primal_obj) <= \
+        1e-8 * max(1.0, abs(jinfo.primal_obj))
+
+
+def test_dense_factor_on_the_card_matches_the_host_ldl(cuda_device):
+    """On a card the "dense_m" route factors M dense there; the CPU's
+    host LDL' gives the same solve."""
+    info = _dense_factor_run(cuda_device)
+    _, _, hinfo = solver.solve_lp_ipm_native(
+        grid_flow_lp(40), _options(tpu_ipm_newton="ldl"), device="cpu")
+    assert abs(info.iterations - hinfo.iterations) <= 1
+    assert abs(info.primal_obj - hinfo.primal_obj) <= \
+        1e-8 * max(1.0, abs(hinfo.primal_obj))
+
+
+def _cover_lp(nrows, ncols, seed=0):
+    """The LP relaxation of a seeded set cover: its normal matrix fills
+    in completely."""
+    rng = np.random.default_rng(seed)
+    a = sp.random(nrows, ncols, density=0.05, random_state=rng,
+                  data_rvs=np.ones, format="csc")
+    return HighsLp(
+        num_col=ncols, num_row=nrows,
+        col_cost=rng.integers(1, 101, ncols).astype(float),
+        col_lower=np.zeros(ncols), col_upper=np.ones(ncols),
+        row_lower=np.ones(nrows), row_upper=np.full(nrows, np.inf),
+        a_matrix=HighsSparseMatrix.from_scipy(a))
+
+
+@pytest.mark.parametrize("case", ["grid", "cover"])
+def test_choose_takes_dense_m_where_the_factor_fills_in(case):
+    """Between the dense route's 2,500 rows and the banded engine's
+    20,000, `choose` reads the symbolic LDL' fill of M: a grid flow's
+    (1.3% of the triangle) stays on the host LDL', a set cover's (all of
+    it) takes "dense_m"; either way the optimum is scipy's."""
+    from scipy.optimize import linprog
+    lp = grid_flow_lp(52) if case == "grid" else _cover_lp(2600, 300)
+    assert lp.num_row > 2500
+    fills_in = solver._fills_in(preprocess_lp(lp).a)
+    st, sol, info = solver.solve_lp_ipm_native(lp, _options(),
+                                               device="cpu")
+    assert fills_in == (case == "cover")
+    assert info.newton == ("dense_m" if fills_in else "ldl")
+    assert int(st) == int(HighsModelStatus.kOptimal)
+    a = lp.a_matrix.to_scipy()
+    if case == "grid":
+        ref = linprog(lp.col_cost, A_eq=a, b_eq=lp.row_lower,
+                      bounds=list(zip(lp.col_lower, lp.col_upper)))
+    else:
+        ref = linprog(lp.col_cost, A_ub=-a, b_ub=-lp.row_lower,
+                      bounds=(0, 1))
+    assert ref.status == 0
+    assert abs(info.primal_obj - ref.fun) <= 1e-6 * max(1.0, abs(ref.fun))
 
 
 def _spd(n, seed=0, density=0.01):

@@ -6,10 +6,6 @@ facades: `highs_tpu.Highs` and `highs_tpu_torch.Highs(device="cpu")`.
   parametrised over the two facades, with the same expected results
   (the seventh, `test_dispatch_boundaries_solve_correctly`, is in
   tests/test_torch_dispatch_boundaries.py).
-  One exception: the port does not solve MIPs yet (ROADMAP queue 1 item
-  7), so in `test_integrality_change` the port records the integrality
-  and its `run()` raises NotImplementedError naming the item, where the
-  JAX facade solves the MIP.
 - `writeSolution` in every style writes the same text from both facades
   for the same solution.
 - The rays, `freezeBasis`/`unfreezeBasis` and `presolve`/`postsolve`
@@ -128,11 +124,8 @@ def test_integrality_change(facade):
     np.testing.assert_array_equal(h.getLp().integrality,
                                   [int(pkg.HighsVarType.kInteger)] * 2)
     assert h.getLp().col_upper[1] == 1.5
-    if facade == "torch":
-        with pytest.raises(NotImplementedError, match="item 7"):
-            h.run()
-        return
     h.run()
+    assert h.getModelStatus() == pkg.HighsModelStatus.kOptimal
     sol = h.getSolution()
     assert abs(sol.col_value[1] - round(sol.col_value[1])) < 1e-6
 

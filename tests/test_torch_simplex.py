@@ -321,16 +321,117 @@ def _native_digests():
 
 
 def test_loading_the_bindings_leaves_native_files_unchanged():
+    """Every library of the port (the simplex, dual simplex, IPM and cut
+    libraries) loads and binds its MIP entries too, and no `native/`
+    file changes."""
     before = _native_digests()
     code = (
         "from highs_tpu_torch.solvers.simplex import native, dual_native\n"
         "from highs_tpu_torch.solvers.ipm import sparse_ldl\n"
+        "from highs_tpu_torch.solvers.mip import native_cuts\n"
         "from highs_tpu_torch.solvers import native_lib\n"
-        "for mod in (native, dual_native, sparse_ldl):\n"
+        "for mod in (native, dual_native, sparse_ldl, native_cuts):\n"
         "    mod.get_lib()\n"
+        "for f in ('hx_feasibility_jump', 'hx_bb_solve', 'hx_propagate'):\n"
+        "    assert getattr(native.get_lib(), f).argtypes\n"
+        "for f in ('hx_dual_create', 'hx_dual_solve_h', 'hx_mip_solve',\n"
+        "          'hx_root_cuts'):\n"
+        "    assert getattr(dual_native.get_lib(), f).argtypes\n"
+        "for f in ('hx_mir_on_leq', 'hx_mir_batch', 'hx_integral_scale'):\n"
+        "    assert getattr(native_cuts.get_lib(), f).argtypes\n"
         "print(sorted(native_lib._LOADED))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.split() == ["['hdual',", "'hipm',", "'hsimplex']"]
+    assert out.stdout.split() == ["['hcuts',", "'hdual',", "'hipm',",
+                                  "'hsimplex']"]
     assert _native_digests() == before
+
+
+@pytest.mark.parametrize("module", [tnative, tdual])
+def test_a_failed_load_raises(module, monkeypatch, tmp_path):
+    """A library that neither loads nor builds raises from get_lib()."""
+    from highs_tpu_torch.solvers import native_lib
+    monkeypatch.setattr(native_lib, "_LOADED", {})
+    monkeypatch.setattr(native_lib, "NATIVE_DIR", tmp_path)
+    monkeypatch.setattr(native_lib, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(OSError):
+        module.get_lib()
+
+
+def _mip_arrays():
+    """A seeded facility location in the engines' scaled form."""
+    from highs_tpu_torch.utils.gen_mip import facility_location
+    d = facility_location(8, 8, seed=1)
+    a = sp.csc_matrix((d["a_value"], d["a_index"], d["a_start"]),
+                      shape=(d["num_row"], d["num_col"]))
+    return (a, a.tocsr(), d["col_cost"], d["col_lower"], d["col_upper"],
+            d["row_lower"], d["row_upper"], d["integrality"] == 1)
+
+
+def test_dual_engine_like_jax():
+    """The persistent engine re-solves the same node boxes to the same
+    x, y, z, basis and iterations as the JAX package's binding."""
+    a, a_csr, c, lo, up, rl, ru, is_int = _mip_arrays()
+    engines = [mod.DualEngine(a, a_csr, c, lo, up, rl, ru)
+               for mod in (tdual, jdual)]
+    rng = np.random.default_rng(0)
+    basis = None
+    for _ in range(6):
+        lo2, up2 = lo.copy(), up.copy()
+        fix = rng.choice(np.nonzero(is_int)[0], size=2, replace=False)
+        up2[fix] = 0.0
+        outs = []
+        for eng in engines:
+            eng.set_col_bounds(lo2, up2)
+            if basis is not None:
+                eng.set_basis(basis)
+            outs.append(eng.solve())
+        _equal_runs(*outs)
+        basis = outs[0][4]
+    for eng in engines:
+        eng.close()
+
+
+def test_mip_entries_like_jax():
+    """`bb_solve` (hsimplex) and `mip_solve` (hdual, no callback, one
+    engine) give the JAX package's results; `root_cuts` separates the
+    same cuts from the same root point."""
+    a, a_csr, c, lo, up, rl, ru, is_int = _mip_arrays()
+    args = (a, a_csr, c, lo, up, rl, ru, is_int, None, np.inf, 0.0, 0.0,
+            0.0, 0.0, -np.inf)
+    for t, j in ((tnative.bb_solve, jnative.bb_solve),
+                 (tdual.mip_solve, jdual.mip_solve)):
+        got, want = t(*args), j(*args)
+        assert got[0] == want[0] == 0 and got[1] and want[1]
+        np.testing.assert_array_equal(got[2], want[2])
+        assert got[3:] == want[3:]
+    st, x, y, z, basis, it = tnative.simplex_solve(a, c, lo, up, rl, ru)
+    got = tdual.root_cuts(a, a_csr, c, lo, up, rl, ru, is_int,
+                          basis_in=basis, x_at=x, max_cuts_round=1000,
+                          time_budget=2.0)
+    want = jdual.root_cuts(a, a_csr, c, lo, up, rl, ru, is_int,
+                           basis_in=basis, x_at=x, max_rounds=1,
+                           max_cuts_round=1000, separate_only=True,
+                           time_budget=2.0)
+    assert got[0] == want[0] == 0 and len(got[1]) == len(want[1]) > 0
+    for (gc, gv, gr), (wc, wv, wr) in zip(got[1], want[1]):
+        np.testing.assert_array_equal(gc, wc)
+        np.testing.assert_array_equal(gv, wv)
+        assert gr == wr
+
+
+def test_simplex_with_scales_like_jax():
+    """`simplex_solve` on the Ruiz-scaled matrix the MIP passes maps the
+    solution back as the JAX package does."""
+    a, _, c, lo, up, rl, ru, _ = _mip_arrays()
+    a = a @ sp.diags(np.linspace(1.0, 300.0, a.shape[1]))
+    sc = tnative._ruiz_scales(a.tocsc())
+    assert sc is not None
+    scaled = (sp.diags(sc[0]) @ a @ sp.diags(sc[1])).tocsc()
+    got = tnative.simplex_solve(a.tocsc(), c, lo, up, rl, ru, scales=sc,
+                                scaled_matrix=scaled)
+    want = jnative.simplex_solve(a.tocsc(), c, lo, up, rl, ru, scales=sc,
+                                 scaled_matrix=scaled)
+    assert got[0] == tnative.RESULT_OPTIMAL
+    _equal_runs(got, want)
