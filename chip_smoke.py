@@ -132,7 +132,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                       facilities (10,201 rows: the presolved relaxation has
                       more than 10,000 rows, so every node LP goes to the
                       IPM with its iterate on the card and its normal
-                      matrix factored dense there), time_limit 300:
+                      matrix factored dense there), time_limit 150:
                       kOptimal within mip_rel_gap of the anchor, or
                       kTimeLimit with a feasible incumbent and dual bound <=
                       anchor <= incumbent (1e-6 slack); at least one IPM
@@ -143,7 +143,33 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                       knapsack program whose root reaches central rounding
                       (its analytic-centre IPM solve on the card) and an
                       infeasible MIP: the statuses and, where optimal, the
-                      objectives of scipy's `milp` on the card's host.
+                      objectives of scipy's `milp` on the card's host;
+16. mip_batch the same set cover with `tpu_mip_batch_nodes` 8 (rounds of
+            8 open nodes, the IPM's dense step under vmap on the card)
+            and `time_limit` 180: kOptimal within mip_rel_gap of the
+            anchor or kTimeLimit with a certified sandwich, the incumbent
+            feasible and integral to 1e-6, at least one batched round,
+            every batched iteration on the card and no dense factor on
+            the CPU; each lane of its first 4 rounds against its node LP
+            solved by the native dual simplex on the host (a converged
+            lane's objective within 1e-6 relative, every certified dual
+            bound at most the optimum + 1e-6 (1 + |opt|)); it prints the
+            rounds, lanes, converged share, ms per batched IPM
+            iteration, nodes and seconds beside phase 15's;
+17. interfaces ipm_dense's LP written with `write_lp` and read back,
+            solved by `python3 -m highs_tpu_torch <file>.lp` in a
+            subprocess (exit 0, "Optimal", the objective within 1e-6 of
+            scipy's) and by `capi.Highs_lpCall` on its arrays (the IPM on
+            the card); `getRanging()` on phase 13's solved facade, with
+            10 sampled nonbasic columns re-solved warm from its basis
+            (inside the cost range 0 pivots and the predicted objective,
+            outside at least one pivot); `getIis()` from the dual ray on
+            a 202-row infeasible synth LP (infeasible, and feasible with
+            any one of its rows dropped; its feasibility LPs on the
+            card); a lexicographic two-objective solve of ipm_dense's LP
+            on the card (the second objective over the points within 1%
+            of the first's optimum), checked by a solve of the second
+            objective with the first fixed as a row.
 
 Kernel times (`ms`, `plain_ms`, `library_ms`) are device times with a
 cold L2, as the PDLP loop finds its operator (`tools/card.py`
@@ -885,6 +911,7 @@ def simplex_phase(device):
                 not rec["kkt"] <= KKT_TOL or not rec["rel_obj"] <= 1e-6:
             raise RuntimeError(f"{name}: {rec}")
         out[name] = rec
+        SOLVED[name] = h
     return out
 
 
@@ -1107,7 +1134,13 @@ def qp_phase(device):
 
 
 MIP_TIME_LIMIT = 300.0
+# facility location's limit: 150 s keeps the script, with phases 16 and
+# 17, well inside its 1,200 s (its sandwich holds at 150 s as at 300 s)
+MIP_CFL_TIME_LIMIT = 150.0
 MIP_FEAS_TOL = 1e-6
+# the facades that phases keep solved for later ones (phase 17 ranges
+# phase 13's simplex LP without a second cold solve)
+SOLVED = {}
 # the MipRunInfo of each outermost MIP solve (`record_mip_runs`): its LP
 # iterations are not in the facade's info
 _MIP_RUNS = []
@@ -1265,7 +1298,8 @@ def mip_cfl_phase(device, anchors):
     if not reduced.num_row > 10000:
         raise RuntimeError("mip_cfl: the presolved relaxation is under the "
                            "10,000-row gate")
-    h, rec = mip_solve("mip_cfl", d, device, {"time_limit": MIP_TIME_LIMIT})
+    h, rec = mip_solve("mip_cfl", d, device,
+                       {"time_limit": MIP_CFL_TIME_LIMIT})
     rel_gap = h.getOptionValue("mip_rel_gap")
     anchor = rec["anchor"] = anchors["cfl"]
     rec["rel_obj"] = abs(rec["objective"] - anchor) / max(1.0, abs(anchor))
@@ -1284,13 +1318,13 @@ def mip_cfl_phase(device, anchors):
     # the relaxation's M fills 65% of its triangle under the LDL'
     # ordering, so the IPM's fill gate sends its solves to "dense_m"
     dense_m = rec["ipm"]["ipm_routes"]["dense_m"]
-    overrun = rec["seconds"] - MIP_TIME_LIMIT
+    overrun = rec["seconds"] - MIP_CFL_TIME_LIMIT
     log(f"mip_cfl: {rec['status']} objective {rec['objective']!r} dual "
         f"bound {rec['dual_bound']!r} against scipy's proven {anchor!r}; "
         f"IPM solves on {device.type} {on_card} (routes "
         f"{rec['ipm']['ipm_routes']}); mean node LP "
         f"{rec['node_lp_mean_ms']} ms; run() {rec['seconds']:.1f} s "
-        f"against a time_limit of {MIP_TIME_LIMIT:g} s")
+        f"against a time_limit of {MIP_CFL_TIME_LIMIT:g} s")
     if not ok or not on_card or not dense_m or overrun > 30.0:
         raise RuntimeError(f"mip_cfl: {rec}")
     return rec
@@ -1396,6 +1430,492 @@ def mip_phase(device):
     return out
 
 
+MIP_BATCH_TIME_LIMIT = 180.0
+# the lexicographic solve's relative tolerance on the first objective,
+# and each of its solves' time limit
+LEX_REL_TOL = 1e-2
+LEX_TIME_LIMIT = 120.0
+MIP_BATCH_K = 8
+# the rounds whose lanes are held against the native simplex
+MIP_BATCH_CHECKED_ROUNDS = 4
+
+
+def watch_batched_rounds(device, keep):
+    """Wrap `BatchNodeEvaluator.evaluate` so that each round's seconds
+    (up to a sync of the card) are kept, and the first `keep` rounds as
+    (relaxation LP, los, ups, results); returns both lists."""
+    import numpy as np
+    from highs_tpu_torch.solvers.mip.batch_nodes import BatchNodeEvaluator
+    seconds, rounds = [], []
+    inner = BatchNodeEvaluator.evaluate
+
+    def watched(self, los, ups):
+        t0 = time.perf_counter()
+        out = inner(self, los, ups)
+        sync(device)
+        seconds.append(time.perf_counter() - t0)
+        if len(rounds) < keep:
+            rounds.append((self.relax_lp, np.array(los), np.array(ups),
+                           out))
+        return out
+    BatchNodeEvaluator.evaluate = watched
+    return seconds, rounds
+
+
+def check_lanes(recorded, device):
+    """Each lane of the recorded rounds against its node LP solved by the
+    native dual simplex on the host: a converged lane's objective within
+    1e-6 relative of the simplex optimum, every certified dual bound at
+    most that optimum + 1e-6 (1 + |opt|), no lane converged on an
+    infeasible node."""
+    import numpy as np
+    from highs_tpu_torch.options import HighsOptions
+    from highs_tpu_torch.solvers.simplex.wrapper import solve_lp_simplex
+    out = dict(lanes=0, converged=0, certified=0, infeasible=0,
+               worst_obj_rel=0.0, worst_bound_excess=-math.inf)
+    for relax_lp, los, ups, results in recorded:
+        sense = float(relax_lp.sense)
+        for lo, up, (converged, bound, x) in zip(los, ups, results):
+            node = relax_lp.copy()
+            node.col_lower, node.col_upper = lo.copy(), up.copy()
+            status, sol, _ = solve_lp_simplex(node, HighsOptions(),
+                                              device=device)
+            out["lanes"] += 1
+            if status.name == "kInfeasible":
+                out["infeasible"] += 1
+                if converged:
+                    raise RuntimeError("mip_batch: a lane converged on an "
+                                       "infeasible node LP")
+                continue
+            if status.name != "kOptimal":
+                raise RuntimeError(f"mip_batch: node LP {status.name}")
+            opt = sense * float(node.col_cost @ sol.col_value)
+            if converged:
+                out["converged"] += 1
+                rel = abs(sense * float(node.col_cost @ x) - opt) / max(
+                    1.0, abs(opt))
+                out["worst_obj_rel"] = max(out["worst_obj_rel"], rel)
+                if not rel <= 1e-6:
+                    raise RuntimeError(f"mip_batch: lane objective off "
+                                       f"the simplex optimum by {rel:.3e}")
+            if math.isfinite(bound):
+                out["certified"] += 1
+                excess = (bound - opt) / (1.0 + abs(opt))
+                out["worst_bound_excess"] = max(out["worst_bound_excess"],
+                                                excess)
+                if not excess <= 1e-6:
+                    raise RuntimeError(f"mip_batch: certified bound "
+                                       f"{bound!r} above the node optimum "
+                                       f"{opt!r}")
+    if out["worst_bound_excess"] == -math.inf:
+        out["worst_bound_excess"] = None
+    return out
+
+
+def mip_batch_phase(device, sequential_seconds):
+    """Phase 16: set cover 500 x 1,000 with batched node LPs on the
+    card, its lanes checked against the native simplex."""
+    from highs_tpu_torch.solvers.ipm import solver as ipm_solver
+    from highs_tpu_torch.solvers.mip import batch_nodes
+    from highs_tpu_torch.tools.mip_anchors import load, model
+    anchor = load()["setcover"]
+    round_seconds, rounds = watch_batched_rounds(device,
+                                                 MIP_BATCH_CHECKED_ROUNDS)
+    counts0 = dict(batch_nodes.COUNTS)
+    factors0 = dict(ipm_solver.DENSE_FACTORS)
+    reset_launches()
+    h, rec = mip_solve("mip_batch", model("setcover"), device,
+                       {"time_limit": MIP_BATCH_TIME_LIMIT,
+                        "tpu_mip_batch_nodes": MIP_BATCH_K})
+    rec["kernel_launches"] = read_launches()
+    counts = {k: batch_nodes.COUNTS[k] - counts0[k] for k in counts0}
+    factors = {k: ipm_solver.DENSE_FACTORS[k] - factors0[k]
+               for k in factors0}
+    rec["batch"] = counts
+    rec["dense_factors"] = factors
+    rec["rounds_seconds"] = sum(round_seconds)
+    rec["ms_per_batched_iteration"] = (
+        1e3 * rec["rounds_seconds"] / counts["iterations"]
+        if counts["iterations"] else None)
+    rec["converged_share"] = (counts["converged"] / counts["lanes"]
+                              if counts["lanes"] else None)
+    rec["sequential_seconds"] = sequential_seconds
+    t0 = time.perf_counter()
+    rec["lane_check"] = check_lanes(rounds, device)
+    rec["lane_check"]["seconds"] = time.perf_counter() - t0
+    rel_gap = h.getOptionValue("mip_rel_gap")
+    rec["anchor"] = anchor
+    rec["rel_obj"] = abs(rec["objective"] - anchor) / max(1.0, abs(anchor))
+    slack = 1e-6 * max(1.0, abs(anchor))
+    if rec["status"] == "kOptimal":
+        ok = rec["rel_obj"] <= rel_gap
+    else:
+        ok = (rec["status"] == "kTimeLimit" and rec["violation"] is not None
+              and rec["dual_bound"] is not None
+              and rec["dual_bound"] <= anchor + slack
+              and anchor <= rec["objective"] + slack)
+    ok = ok and rec["violation"] is not None and \
+        rec["violation"] <= MIP_FEAS_TOL and \
+        rec["integrality_violation"] <= MIP_FEAS_TOL
+    log(f"mip_batch: {rec['status']} objective {rec['objective']!r} dual "
+        f"bound {rec['dual_bound']!r} against scipy's proven {anchor!r}; "
+        f"{counts['rounds']} batched rounds of up to {MIP_BATCH_K}, "
+        f"{counts['lanes']} lanes, {counts['converged']} converged "
+        f"({rec['converged_share']}), {counts['iterations']} batched IPM "
+        f"iterations (by device: cuda {counts['cuda']}, cpu "
+        f"{counts['cpu']}) in {rec['rounds_seconds']:.2f} s, "
+        f"{rec['ms_per_batched_iteration']} ms each; dense factors "
+        f"{factors}; nodes {rec['nodes']} in {rec['seconds']:.2f} s "
+        f"(the sequential engine of phase 15: {sequential_seconds:.2f} s); "
+        f"lane check {rec['lane_check']}")
+    other = "cpu" if device.type == "cuda" else "cuda"
+    if not ok or not counts["rounds"] or counts[other] or \
+            counts[device.type] < counts["iterations"] or factors[other] or \
+            not rec["lane_check"]["lanes"] or \
+            rec["seconds"] > MIP_BATCH_TIME_LIMIT + 30.0:
+        raise RuntimeError(f"mip_batch: {rec}")
+    return rec
+
+
+def ipm_counts():
+    from highs_tpu_torch.solvers.ipm import solver as ipm_solver
+    return dict(solves=dict(ipm_solver.SOLVES),
+                dense_factors=dict(ipm_solver.DENSE_FACTORS))
+
+
+def ipm_count_delta(after, before):
+    return {k: {d: after[k][d] - before[k][d] for d in after[k]}
+            for k in after}
+
+
+def on_card_only(delta, device):
+    """The IPM ran on `device` alone (no solve or factor elsewhere)."""
+    other = "cpu" if device.type == "cuda" else "cuda"
+    return delta["solves"][device.type] > 0 and \
+        not delta["solves"][other] and not delta["dense_factors"][other]
+
+
+def lp_file_part(device, tmp):
+    """ipm_dense's LP through an .lp file: written and read back, solved
+    by `python3 -m highs_tpu_torch` in a subprocess and by
+    `capi.Highs_lpCall` on its arrays."""
+    import subprocess
+    import numpy as np
+    from highs_tpu_torch import capi
+    from highs_tpu_torch.io.lp_format import read_lp, write_lp
+    from highs_tpu_torch.models.lp import HighsModel
+    from highs_tpu_torch.utils.gen_synth_lp import synth_lp
+    lp = synth_lp(*IPM_DENSE_SHAPE)
+    path = os.path.join(tmp, "ipm_dense.lp")
+    t0 = time.perf_counter()
+    write_lp(HighsModel(lp=lp), path)
+    back = read_lp(path).lp
+    rec = dict(write_read_seconds=time.perf_counter() - t0,
+               file_bytes=os.path.getsize(path))
+    same = back.num_row == lp.num_row and back.num_col == lp.num_col and \
+        all(np.allclose(getattr(back, f), getattr(lp, f), rtol=1e-11,
+                        atol=0) for f in ("col_cost", "col_lower",
+                                          "col_upper", "row_lower",
+                                          "row_upper")) and \
+        abs(back.a_matrix.to_scipy() - lp.a_matrix.to_scipy()).max() <= \
+        1e-11 * abs(lp.a_matrix.to_scipy()).max()
+    if not same:
+        raise RuntimeError("interfaces: the .lp file does not read back "
+                           "to the LP written")
+    t0 = time.perf_counter()
+    sol_path = os.path.join(tmp, "ipm_dense.sol")
+    env = dict(os.environ, PYTHONPATH=HERE)
+    proc = subprocess.run(
+        [sys.executable, "-m", "highs_tpu_torch", path, "--solution_file",
+         sol_path], cwd=HERE, env=env, capture_output=True, text=True,
+        timeout=600)
+    rec["cli_seconds"] = time.perf_counter() - t0
+    rec["cli_rc"] = proc.returncode
+    status_line = [ln for ln in proc.stdout.splitlines()
+                   if ln.startswith("Model status")]
+    obj_line = [ln for ln in proc.stdout.splitlines()
+                if ln.startswith("Objective value")]
+    rec["cli_status"] = status_line[0].split(":")[1].strip() \
+        if status_line else None
+    rec["cli_objective"] = float(obj_line[0].split(":")[1]) \
+        if obj_line else None
+    rec["cli_solution_file"] = os.path.exists(sol_path)
+    log(f"interfaces: ipm_dense's LP as .lp ({rec['file_bytes']} bytes, "
+        f"written and read back in {rec['write_read_seconds']:.2f} s); "
+        f"python3 -m highs_tpu_torch: rc {proc.returncode} status "
+        f"{rec['cli_status']} objective {rec['cli_objective']!r} in "
+        f"{rec['cli_seconds']:.2f} s")
+    if proc.returncode != 0 or rec["cli_status"] != "Optimal" or \
+            rec["cli_objective"] is None or \
+            not abs(rec["cli_objective"] - IPM_DENSE_OBJECTIVE) <= 1e-6 * \
+            abs(IPM_DENSE_OBJECTIVE) or not rec["cli_solution_file"]:
+        log(proc.stdout[-4000:])
+        log(proc.stderr[-4000:])
+        raise RuntimeError(f"interfaces: the CLI run {rec}")
+    a = lp.a_matrix.to_scipy().tocsc()
+    counts0 = ipm_counts()
+    t0 = time.perf_counter()
+    st, col_value, _, _, _, model_status = capi.Highs_lpCall(
+        lp.num_col, lp.num_row, a.nnz, capi.kHighsMatrixFormatColwise,
+        capi.kHighsObjSenseMinimize, 0.0, lp.col_cost, lp.col_lower,
+        lp.col_upper, lp.row_lower, lp.row_upper, a.indptr, a.indices,
+        a.data, device=device)
+    sync(device)
+    rec["capi_seconds"] = time.perf_counter() - t0
+    rec["capi_ipm"] = ipm_count_delta(ipm_counts(), counts0)
+    rec["capi_model_status"] = model_status
+    rec["capi_objective"] = float(lp.col_cost @ np.asarray(col_value))
+    log(f"interfaces: Highs_lpCall status {st} model status {model_status} "
+        f"objective {rec['capi_objective']!r} in {rec['capi_seconds']:.2f} "
+        f"s; IPM {rec['capi_ipm']}")
+    if st != capi.kHighsStatusOk or model_status != 7 or \
+            not abs(rec["capi_objective"] - rec["cli_objective"]) <= 1e-6 * \
+            abs(IPM_DENSE_OBJECTIVE) or \
+            not on_card_only(rec["capi_ipm"], device):
+        raise RuntimeError(f"interfaces: Highs_lpCall {rec}")
+    return rec
+
+
+def ranging_part(device):
+    """`getRanging()` on phase 13's solved facade (1,500 x 1,500, the
+    native simplex's optimal basis), then 10 sampled nonbasic columns
+    re-solved from that basis with their cost moved inside and outside
+    the range.  Every nonbasic column of this LP rests at its lower
+    bound 0 (c > 0, min), so its cost range is (col_cost_dn, +inf):
+    col_cost_up is checked by a cost ten times higher (inside, 0
+    pivots), col_cost_dn by a cost just above it (inside: 0 pivots, the
+    objective the ranging predicts) and just below it (outside: at least
+    one pivot)."""
+    import copy
+    import numpy as np
+    h = SOLVED["simplex_choose"]
+    lp = h.getLp()
+    t0 = time.perf_counter()
+    status, ranging = h.getRanging()
+    rec = dict(ranging_seconds=time.perf_counter() - t0,
+               valid=bool(ranging is not None and ranging.valid))
+    if int(status) != 0 or not rec["valid"]:
+        raise RuntimeError(f"interfaces: getRanging {status}")
+    basis0 = copy.deepcopy(h.getBasis())
+    obj0 = h.getObjectiveValue()
+    x0 = np.asarray(h.getSolution().col_value).copy()
+    cost0 = lp.col_cost.copy()
+    from highs_tpu_torch.constants import HighsBasisStatus
+    basic = np.array([int(s) == int(HighsBasisStatus.kBasic)
+                      for s in basis0.col_status])
+    nonbasic = np.nonzero(~basic)[0]
+    cols = np.random.default_rng(0).choice(nonbasic, 10, replace=False)
+    h.setOptionValue("presolve", "off")
+    h.setOptionValue("solver", "simplex")
+
+    def resolve(j, cost):
+        h.changeColCost(j, cost)
+        h.setBasis(copy.deepcopy(basis0))
+        h.run()
+        info = h.getInfo()
+        out = (h.getModelStatus().name, max(info.simplex_iteration_count, 0),
+               h.getObjectiveValue())
+        h.changeColCost(j, cost0[j])
+        return out
+
+    checks = []
+    t0 = time.perf_counter()
+    for j in cols:
+        up, dn = ranging.col_cost_up.value_[j], ranging.col_cost_dn.value_[j]
+        if math.isfinite(up) or not math.isfinite(dn) or x0[j] != 0.0 or \
+                not dn < cost0[j]:
+            raise RuntimeError(f"interfaces: column {j} ranging ({dn}, {up})"
+                               f" at x = {x0[j]}")
+        delta = cost0[j] - dn
+        margin = max(1e-3 * delta, 1e-6)
+        predicted = ranging.col_cost_dn.objective_[j]
+        for side, cost, inside in (("up", 10.0 * cost0[j] + 1.0, True),
+                                   ("dn", dn + margin, True),
+                                   ("dn", dn - margin, False)):
+            st, pivots, obj = resolve(j, cost)
+            ok = st == "kOptimal" and (
+                (pivots == 0 and abs(obj - predicted) <= 1e-9 *
+                 (1.0 + abs(obj0))) if inside else pivots > 0)
+            checks.append(dict(col=int(j), side=side, inside=inside,
+                               cost=cost, pivots=pivots, objective=obj,
+                               ok=ok))
+            if not ok:
+                raise RuntimeError(f"interfaces: ranging check {checks[-1]}")
+    rec["resolves"] = len(checks)
+    rec["resolve_seconds"] = time.perf_counter() - t0
+    rec["outside_pivots"] = [c["pivots"] for c in checks if not c["inside"]]
+    log(f"interfaces: getRanging in {rec['ranging_seconds']:.3f} s; "
+        f"{len(cols)} nonbasic columns, {len(checks)} warm re-solves in "
+        f"{rec['resolve_seconds']:.2f} s: 0 pivots inside each range, "
+        f"{rec['outside_pivots']} pivots outside")
+    return rec
+
+
+def infeasible_synth_lp(m=200, n=300, seed=4):
+    """`gen_synth_lp(m, n)` with a contradictory pair of rows added:
+    x0 + x1 >= 12 and x0 + x1 <= 8."""
+    import numpy as np
+    import scipy.sparse as sp
+    from highs_tpu_torch.models.lp import HighsLp, HighsSparseMatrix
+    from highs_tpu_torch.utils.gen_synth_lp import synth_lp
+    lp = synth_lp(m, n, seed=seed)
+    pair = sp.csc_matrix(([1.0] * 4, ([0, 0, 1, 1], [0, 1, 0, 1])),
+                         shape=(2, n))
+    return HighsLp(
+        num_col=n, num_row=m + 2, col_cost=lp.col_cost,
+        col_lower=lp.col_lower, col_upper=lp.col_upper,
+        row_lower=np.concatenate([lp.row_lower, [12.0, -np.inf]]),
+        row_upper=np.concatenate([lp.row_upper, [np.inf, 8.0]]),
+        a_matrix=HighsSparseMatrix.from_scipy(
+            sp.vstack([lp.a_matrix.to_scipy(), pair]).tocsc()))
+
+
+def iis_part(device):
+    """`getIis()` (iis_strategy 1, from the dual ray) on a 202-row
+    infeasible LP: its rows infeasible together, feasible with any one
+    dropped."""
+    import numpy as np
+    import highs_tpu_torch
+    lp = infeasible_synth_lp()
+
+    def feasible_with(rows):
+        work = lp.copy()
+        free = np.setdiff1d(np.arange(lp.num_row), rows)
+        work.row_lower[free], work.row_upper[free] = -np.inf, np.inf
+        hh = highs_tpu_torch.Highs(device=device)
+        hh.setOptionValue("output_flag", False)
+        hh.passModel(work)
+        hh.run()
+        name = hh.getModelStatus().name
+        if name not in ("kOptimal", "kInfeasible"):
+            raise RuntimeError(f"interfaces: IIS check {name}")
+        return name == "kOptimal"
+
+    h = highs_tpu_torch.Highs(device=device)
+    h.setOptionValue("output_flag", False)
+    h.setOptionValue("iis_strategy", 1)
+    h.passModel(lp)
+    h.run()
+    counts0 = ipm_counts()
+    t0 = time.perf_counter()
+    status, iis = h.getIis()
+    sync(device)
+    rec = dict(status=h.getModelStatus().name,
+               iis_seconds=time.perf_counter() - t0,
+               ipm=ipm_count_delta(ipm_counts(), counts0),
+               rows=list(iis.row_index) if iis else None,
+               cols=list(iis.col_index) if iis else None)
+    t0 = time.perf_counter()
+    rec["irreducible"] = bool(
+        iis and iis.valid and iis.row_index and
+        not feasible_with(iis.row_index) and
+        all(feasible_with([k for k in iis.row_index if k != i])
+            for i in iis.row_index))
+    rec["check_seconds"] = time.perf_counter() - t0
+    log(f"interfaces: getIis on {lp.num_row} x {lp.num_col}: rows "
+        f"{rec['rows']} columns {rec['cols']} in {rec['iis_seconds']:.2f} "
+        f"s (IPM {rec['ipm']}); irreducible {rec['irreducible']} "
+        f"(checked in {rec['check_seconds']:.2f} s)")
+    if int(status) != 0 or rec["status"] != "kInfeasible" or \
+            not rec["irreducible"] or not on_card_only(rec["ipm"], device):
+        raise RuntimeError(f"interfaces: getIis {rec}")
+    return rec
+
+
+def multiobjective_part(device):
+    """A lexicographic two-objective solve of ipm_dense's LP (cost c,
+    then a seeded c2 over the points within `LEX_REL_TOL` of c's
+    optimum), both solves on the card; checked by one more solve of c2
+    with c fixed as a row.  At a tolerance of 1e-3 or less the second
+    LP's feasible set is a slab too thin for the IPM, which stalls, and
+    `choose` hands it to PDLP (PERF.md §6)."""
+    import numpy as np
+    import scipy.sparse as sp
+    import highs_tpu_torch
+    from highs_tpu_torch.models.lp import HighsSparseMatrix
+    from highs_tpu_torch.utils.gen_synth_lp import synth_lp
+    lp = synth_lp(*IPM_DENSE_SHAPE)
+    c2 = np.random.default_rng(1).uniform(-1.0, 1.0, lp.num_col)
+    rel_tol = LEX_REL_TOL
+
+    def facade(model):
+        hh = highs_tpu_torch.Highs(device=device)
+        hh.setOptionValue("output_flag", False)
+        hh.setOptionValue("time_limit", LEX_TIME_LIMIT)
+        hh.passModel(model)
+        return hh
+
+    h = facade(lp.copy())
+    h.setOptionValue("blend_multi_objectives", False)
+    h.passLinearObjectives([
+        highs_tpu_torch.HighsLinearObjective(
+            weight=1.0, priority=2, coefficients=lp.col_cost.copy(),
+            abs_tolerance=0.0, rel_tolerance=rel_tol),
+        highs_tpu_torch.HighsLinearObjective(
+            weight=1.0, priority=1, coefficients=c2.copy(),
+            abs_tolerance=0.0, rel_tolerance=0.0)])
+    counts0 = ipm_counts()
+    t0 = time.perf_counter()
+    h.run()
+    sync(device)
+    rec = dict(status=h.getModelStatus().name,
+               seconds=time.perf_counter() - t0,
+               ipm=ipm_count_delta(ipm_counts(), counts0))
+    x = np.asarray(h.getSolution().col_value)
+    rec["first"] = float(lp.col_cost @ x)
+    rec["second"] = float(c2 @ x)
+    # the check: c alone, then c2 with c'x <= its optimum (1 + rel_tol)
+    first = facade(lp.copy())
+    first.run()
+    v1 = first.getObjectiveValue()
+    fixed = lp.copy()
+    fixed.col_cost = c2.copy()
+    fixed.a_matrix = HighsSparseMatrix.from_scipy(sp.vstack(
+        [lp.a_matrix.to_scipy(), sp.csr_matrix(lp.col_cost)]).tocsc())
+    fixed.num_row += 1
+    fixed.row_lower = np.concatenate([lp.row_lower, [-np.inf]])
+    fixed.row_upper = np.concatenate([lp.row_upper,
+                                      [v1 + rel_tol * abs(v1)]])
+    check = facade(fixed)
+    check.run()
+    rec.update(first_optimum=v1, check_status=check.getModelStatus().name,
+               check_second=check.getObjectiveValue(),
+               rows_after=h.getNumRow())
+    rec["second_rel"] = abs(rec["second"] - rec["check_second"]) / max(
+        1.0, abs(rec["check_second"]))
+    log(f"interfaces: lexicographic solve {rec['status']} in "
+        f"{rec['seconds']:.2f} s (IPM {rec['ipm']}): c'x {rec['first']!r} "
+        f"(c's optimum {v1!r}), c2'x {rec['second']!r}; the check solve "
+        f"{rec['check_status']} c2'x {rec['check_second']!r} (rel "
+        f"{rec['second_rel']:.3e})")
+    if rec["status"] != "kOptimal" or rec["check_status"] != "kOptimal" or \
+            rec["ipm"]["solves"][device.type] < 2 or \
+            not on_card_only(rec["ipm"], device) or \
+            not abs(v1 - IPM_DENSE_OBJECTIVE) <= 1e-6 * abs(v1) or \
+            not rec["first"] <= v1 + 2 * rel_tol * abs(v1) or \
+            not rec["second_rel"] <= 1e-6 or rec["rows_after"] != lp.num_row:
+        raise RuntimeError(f"interfaces: multi-objective {rec}")
+    return rec
+
+
+def interfaces_phase(device):
+    """Phase 17: the .lp file, the CLI and the C API on ipm_dense's LP,
+    ranging, an IIS and a lexicographic solve, on the card."""
+    import tempfile
+    out = {}
+    with tempfile.TemporaryDirectory(dir=HERE) as tmp:
+        for name, part in (("lp_file", lambda: lp_file_part(device, tmp)),
+                           ("ranging", lambda: ranging_part(device)),
+                           ("iis", lambda: iis_part(device)),
+                           ("multiobjective",
+                            lambda: multiobjective_part(device))):
+            t0 = time.perf_counter()
+            out[name] = part()
+            out[name]["part_seconds"] = time.perf_counter() - t0
+            log(f"interfaces: {name} {out[name]['part_seconds']:.1f} s")
+    return out
+
+
 def headline(records, launches, extra=None):
     """One kernel's line: the f32 records (the main path's type), the
     mean of its directions."""
@@ -1494,6 +2014,9 @@ def main() -> int:
     simplex = run("simplex", simplex_phase, device)
     qp = run("qp", qp_phase, device)
     mip = run("mip", mip_phase, device)
+    mip_batch = run("mip_batch", mip_batch_phase, device,
+                    mip["mip_setcover"]["seconds"])
+    interfaces = run("interfaces", interfaces_phase, device)
 
     probe_head = [r for r in probe_records
                   if r["name"] == gather_probe.SHAPES[0][0]]
@@ -1521,8 +2044,8 @@ def main() -> int:
         for name in ("block_csr_spmv", "onehot_spmv", "gather_probe")],
         "formats": formats, "synth50k_seconds": oh_seconds, "ipm": ipm,
         "block64k_avg_seconds": avg_seconds, "batch": batch,
-        "simplex": simplex, "qp": qp, "mip": mip,
-        "phase_seconds": phase_s,
+        "simplex": simplex, "qp": qp, "mip": mip, "mip_batch": mip_batch,
+        "interfaces": interfaces, "phase_seconds": phase_s,
         "total_seconds": time.perf_counter() - t_start}
     log(json.dumps(summary))
     log(card_line())

@@ -7,8 +7,8 @@ LP dispatch, a convex QP through the QP solvers and a MIP through
 presolve and branch-and-cut, on the torch device given to the
 constructor (default CUDA); the simplex, crossover, the QP active set
 and the MIP search run on the host.  The model-editing methods come
-from `HighsModelApi` (model_api.py).  `.lp` files and the analysis
-methods of the JAX package's facade are not ported yet.
+from `HighsModelApi` (model_api.py), ranging, IIS, basis solves and
+multi-objective solves from `HighsAnalysisApi` (analysis_api.py).
 """
 from __future__ import annotations
 
@@ -19,6 +19,7 @@ from typing import Any, Callable, Optional
 
 import numpy as np
 
+from .analysis_api import HighsAnalysisApi
 from .callbacks import HighsCallback
 from .constants import (BasisValidity, HighsModelStatus, HighsStatus,
                         HighsVarType, ObjSense, SolutionStatus,
@@ -26,17 +27,34 @@ from .constants import (BasisValidity, HighsModelStatus, HighsStatus,
 from .device import resolve_device
 from .info import HighsInfo
 from .io.logging import HighsLogger, HighsLogType
+from .io.lp_format import read_lp, write_lp
 from .io.mps import read_mps, write_mps
 from .model_api import HighsModelApi
 from .models.lp import HighsHessian, HighsLp, HighsModel
 from .models.solution import HighsBasis, HighsSolution
 from .options import HighsOptions
 from .run_data import HighsRunData
+from .utils.debug import debug_check_lp_solution
 from .utils.kkt import compute_kkt, fill_info_from_kkt
+from .utils.matrix_pic import write_matrix_pbm
 from .utils.timer import HighsTimer
 
 
-class Highs(HighsModelApi):
+def githash() -> str:
+    """The short hash of the checkout's HEAD, or "n/a"."""
+    import os
+    import subprocess
+    try:
+        return subprocess.run(
+            ["git", "rev-parse", "--short", "HEAD"],
+            capture_output=True, text=True, timeout=5,
+            cwd=os.path.dirname(os.path.dirname(
+                os.path.abspath(__file__)))).stdout.strip() or "n/a"
+    except (OSError, subprocess.SubprocessError):
+        return "n/a"
+
+
+class Highs(HighsModelApi, HighsAnalysisApi):
     """User-facing solver object (API parity with the reference Highs)."""
 
     def __init__(self, device=None):
@@ -64,12 +82,11 @@ class Highs(HighsModelApi):
     # Model loading
     # ------------------------------------------------------------------
     def readModel(self, filename: str) -> HighsStatus:
-        if filename.endswith(".lp") or filename.endswith(".lp.gz"):
-            raise NotImplementedError(
-                "reading the .lp format is not yet ported "
-                "(ROADMAP queue 1 item 8)")
         try:
-            self._model = read_mps(filename)
+            if filename.endswith(".lp") or filename.endswith(".lp.gz"):
+                self._model = read_lp(filename)
+            else:
+                self._model = read_mps(filename)
         except Exception as err:  # parse errors -> kError like the reference
             self._log(f"Error reading model file {filename}: {err}")
             return HighsStatus.kError
@@ -77,6 +94,8 @@ class Highs(HighsModelApi):
         return HighsStatus.kOk
 
     def writeModel(self, filename: str) -> HighsStatus:
+        if filename.endswith(".lp") or filename.endswith(".lp.gz"):
+            return write_lp(self._model, filename)
         return write_mps(self._model, filename)
 
     def passModel(self, model) -> HighsStatus:
@@ -227,17 +246,7 @@ class Highs(HighsModelApi):
         return "deprecated"
 
     def githash(self) -> str:
-        """The short hash of the checkout's HEAD, or "n/a"."""
-        import os
-        import subprocess
-        try:
-            return subprocess.run(
-                ["git", "rev-parse", "--short", "HEAD"],
-                capture_output=True, text=True, timeout=5,
-                cwd=os.path.dirname(os.path.dirname(
-                    os.path.abspath(__file__)))).stdout.strip() or "n/a"
-        except (OSError, subprocess.SubprocessError):
-            return "n/a"
+        return githash()
 
     def getRunData(self) -> HighsRunData:
         """The post-run metric registry (reference Highs::getRunData)."""
@@ -361,11 +370,17 @@ class Highs(HighsModelApi):
     # run()
     # ------------------------------------------------------------------
     def run(self) -> HighsStatus:
-        for name in ("write_matrix_image", "write_hessian_image"):
-            if self._options.get(name)[1]:
-                raise NotImplementedError(
-                    f"option {name} is not yet ported "
-                    "(ROADMAP queue 1 item 8)")
+        # debug images (reference HighsMatrixPic, options
+        # write_matrix_image / write_hessian_image)
+        name = self._model.lp.model_name or "model"
+        if self._options.write_matrix_image and self._model.lp.num_nz:
+            write_matrix_pbm(self._model.lp.a_matrix.to_scipy(),
+                             f"{name}_matrix.pbm")
+        if self._options.write_hessian_image and \
+                self._model.hessian is not None and \
+                self._model.hessian.dim:
+            write_matrix_pbm(self._model.hessian.to_scipy_full(),
+                             f"{name}_hessian.pbm")
         t0 = time.perf_counter()
         # the run-data times cover this run only
         self._timer.reset()
@@ -431,6 +446,9 @@ class Highs(HighsModelApi):
             self._model_status = HighsModelStatus.kNotset
             return HighsStatus.kError
 
+        if self._has_multi_objectives():
+            return self._multiobjective_solve()
+
         if self._model.is_mip() and not self._options.solve_relaxation:
             return self._call_solve_mip()
         if self._model.is_qp():
@@ -442,10 +460,6 @@ class Highs(HighsModelApi):
         if self._model.is_mip():  # solve_relaxation
             lp = lp.copy()
             lp.integrality = np.zeros(0, dtype=np.uint8)
-        if self._options.highs_debug_level > 0:
-            raise NotImplementedError(
-                "highs_debug_level > 0 is not yet ported "
-                "(ROADMAP queue 1 item 8)")
 
         from .solvers.dispatch import solve_lp
         status, solution, lp_info = solve_lp(
@@ -465,6 +479,13 @@ class Highs(HighsModelApi):
                      "presolved_num_nz"):
             if hasattr(lp_info, name):  # set once the LP reached a solver
                 setattr(self._info, name, getattr(lp_info, name))
+        if self._options.highs_debug_level > 0:
+            # the reference's HighsDebug layer: post-solve consistency
+            # checks on the host, free when the level is 0
+            debug_check_lp_solution(
+                lp, self._solution,
+                self._basis if self._basis.valid else None,
+                self._options, status, log=self._log)
         return HighsStatus.kOk
 
     def _call_solve_qp(self) -> HighsStatus:

@@ -482,15 +482,22 @@ def ipm_step(problem: IpmProblem, state: IpmState, regs,
     device.
 
     `regs` = (reg_primal, reg_dual), escalated by `solve_lp_ipm_native`
-    on a Cholesky breakdown.  `settings` = (sigma_min, sigma_max, ftb,
-    theta_max).  `newton` picks the normal-equations solver ("chol",
-    "cg", "ldl" or "dense_m", module docstring).  `clock` times the
-    Newton phases."""
+    on a Cholesky breakdown: host numbers, or on the "chol" route a
+    tensor, which `torch.func.vmap` can batch so that every lane has its
+    own (`mip/batch_nodes.py`).  `settings` = (sigma_min, sigma_max,
+    ftb, theta_max).  `newton` picks the normal-equations solver
+    ("chol", "cg", "ldl" or "dense_m", module docstring).  `clock` times
+    the Newton phases."""
     def phase(name):
         return clock.phase(name) if clock is not None else \
             contextlib.nullcontext()
     sigma_min, sigma_max, ftb, theta_max = settings
-    reg_p, reg_d = float(regs[0]), float(regs[1])
+    if isinstance(regs, torch.Tensor):
+        if newton != "chol":
+            raise ValueError("tensor regs need the 'chol' route")
+        reg_p, reg_d = regs[0], regs[1]
+    else:
+        reg_p, reg_d = float(regs[0]), float(regs[1])
     n = problem.a.shape[1]
     lo_fin, up_fin = problem.lo_fin, problem.up_fin
 

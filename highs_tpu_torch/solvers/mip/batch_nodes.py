@@ -1,0 +1,189 @@
+"""Batched MIP node-LP evaluation on a torch device.
+
+The JAX package's `mip/batch_nodes.py`: open nodes share the relaxation
+matrix and differ only in their bound vectors, so a round of K node LPs
+is one program, the dense normal-equations IPM step (`ipm/solver.py`,
+"chol" route) under `torch.func.vmap` over a (K, ...) batch of bounds,
+states and regularizations.  The shared standard-form K, its rhs and
+cost are not batched.
+
+Each lane yields:
+- a certified dual bound (the IPM dual objective once the lane's
+  relative dual residual is below 1e-9) for cutoff pruning, and
+- the primal iterate, mapped back to the relaxation's columns, once
+  converged.
+
+Lanes that do not converge report nothing and go to the exact sequential
+node engine.  The JAX package builds the slack upper bounds of a round
+with one row instead of K (`_problem_fields`), so every round of K >= 2
+nodes raises there and its solver, which swallows the error, never
+evaluates a batch; here they have K rows.
+"""
+from __future__ import annotations
+
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ...device import resolve_device
+from ...models.lp import HighsLp
+from ..ipm.solver import (IpmProblem, IpmSettings, IpmState,
+                          _geo_scale_dense, ipm_step, starting_point)
+from ..pdlp.preprocess import preprocess_lp, recover_solution
+
+F64 = torch.float64
+# batched rounds, their lanes, the lanes that converged and the batched
+# IPM iterations, with the iterations by device type: read like the
+# kernels' launch counters (a batched step factors every lane at once, so
+# `ipm/solver.py`'s DENSE_FACTORS counts it once)
+COUNTS = {"rounds": 0, "lanes": 0, "converged": 0, "iterations": 0,
+          "cuda": 0, "cpu": 0}
+
+
+class BatchNodeEvaluator:
+    def __init__(self, relax_lp: HighsLp, device=None,
+                 tolerance: float = 1e-9, max_iters: int = 80):
+        self.device = resolve_device(device)
+        self.tolerance = tolerance
+        self.max_iters = max_iters
+        self.relax_lp = relax_lp
+        self.n_orig = relax_lp.num_col
+
+        std = preprocess_lp(relax_lp)
+        self.std = std
+        m, n_std = std.num_row, std.num_col
+        self.m, self.n_std = m, n_std
+        a_np = std.a.toarray()
+        self.row_s = _geo_scale_dense(np.abs(a_np), 1)
+        self.col_s = _geo_scale_dense(np.abs(self.row_s[:, None] * a_np), 0)
+        a_scaled = self.row_s[:, None] * a_np * self.col_s[None, :]
+        self.b_scaled = self.row_s * std.b
+        self.c_scaled = std.c * self.col_s
+        self.is_ineq = (np.arange(m) >= std.num_eq).astype(np.float64)
+
+        self._shared = dict(
+            a=self._dev(a_scaled), b=self._dev(self.b_scaled),
+            c=self._dev(self.c_scaled), slack_mask=self._dev(self.is_ineq),
+            norm_c=self._dev(np.linalg.norm(self.c_scaled)),
+            norm_b=self._dev(np.linalg.norm(self.b_scaled)))
+        sett = IpmSettings()
+        self._sett_tuple = (sett.sigma_min, sett.sigma_max,
+                            sett.fraction_to_boundary, sett.theta_max)
+        self._regs = np.array([sett.reg_primal, sett.reg_dual])
+        self._vstart = torch.func.vmap(
+            lambda lanes: starting_point(self._problem(lanes)))
+        self._vstep = torch.func.vmap(
+            lambda lanes, state, regs: ipm_step(
+                self._problem(lanes), state, regs, self._sett_tuple))
+
+    def _dev(self, v) -> torch.Tensor:
+        return torch.as_tensor(v, dtype=F64, device=self.device)
+
+    def _problem(self, lanes) -> IpmProblem:
+        lo, up, lo_fin, up_fin, active = lanes
+        return IpmProblem(lo=lo, up=up, lo_fin=lo_fin, up_fin=up_fin,
+                          active=active, **self._shared)
+
+    def _problem_fields(self, los: np.ndarray, ups: np.ndarray):
+        """Per-node (K, n_std + m) bound and mask arrays from node bounds
+        over the relaxation's columns (K, n_orig)."""
+        K = los.shape[0]
+        m, n_std = self.m, self.n_std
+        std = self.std
+        with np.errstate(invalid="ignore"):
+            lo_x = los / self.col_s[:self.n_orig][None, :]
+            up_x = ups / self.col_s[:self.n_orig][None, :]
+        # the standard form's own slack columns keep the template's bounds
+        lo_rest = np.tile(std.col_lower[self.n_orig:] /
+                          self.col_s[self.n_orig:], (K, 1))
+        up_rest = np.tile(std.col_upper[self.n_orig:] /
+                          self.col_s[self.n_orig:], (K, 1))
+        lo_xs = np.concatenate([lo_x, lo_rest], axis=1)
+        up_xs = np.concatenate([up_x, up_rest], axis=1)
+        lo_sl = np.zeros((K, m))
+        up_sl = np.tile(np.where(self.is_ineq > 0, np.inf, 0.0), (K, 1))
+        lo = np.concatenate([lo_xs, lo_sl], axis=1)
+        up = np.concatenate([up_xs, up_sl], axis=1)
+
+        fixed = np.zeros((K, n_std + m), dtype=bool)
+        with np.errstate(invalid="ignore"):
+            fixed[:, :n_std] = np.isfinite(lo_xs) & np.isfinite(up_xs) & \
+                (up_xs - lo_xs <= 1e-14 * (1.0 + np.abs(lo_xs)))
+        fixed[:, n_std:] = self.is_ineq[None, :] == 0
+        active = (~fixed).astype(np.float64)
+        lo_fin = (np.isfinite(lo) & ~fixed).astype(np.float64)
+        up_fin = (np.isfinite(up) & ~fixed).astype(np.float64)
+        big = 1e30
+        lo_dev = np.where(np.isfinite(lo), lo, -big)
+        up_dev = np.where(np.isfinite(up), up, big)
+        return lo_dev, up_dev, lo_fin, up_fin, active
+
+    def evaluate(self, los: np.ndarray, ups: np.ndarray
+                 ) -> List[Tuple[bool, float, Optional[np.ndarray]]]:
+        """Evaluate K node relaxations.
+
+        Returns per node (converged, dual_bound_min_space, x_orig);
+        dual_bound is -inf where the lane produced no certified bound."""
+        los = np.asarray(los, dtype=np.float64)
+        ups = np.asarray(ups, dtype=np.float64)
+        K = los.shape[0]
+        lanes = tuple(self._dev(f) for f in self._problem_fields(los, ups))
+        state = self._vstart(lanes)
+        regs = self._dev(np.tile(self._regs, (K, 1)))
+        COUNTS["rounds"] += 1
+        COUNTS["lanes"] += K
+
+        norm_b = 1.0 + float(np.linalg.norm(self.b_scaled))
+        norm_c = 1.0 + float(np.linalg.norm(self.c_scaled))
+        tol = self.tolerance
+        done = np.zeros(K, dtype=bool)
+        best_dual = np.full(K, -np.inf)
+        mh = None
+        for it in range(self.max_iters):
+            prev_state = state
+            state, metrics = self._vstep(lanes, state, regs)
+            COUNTS["iterations"] += 1
+            COUNTS[self.device.type] += 1
+            # the host reads the step's metrics, (7, K), once
+            mh = torch.stack(list(metrics)).cpu().numpy()
+            primal_res, dual_res, mu, pobj, dobj = mh[:5]
+            bad = ~np.isfinite(mu)
+            if bad.any():
+                # revert the broken lanes, escalate their regularization
+                bad_dev = torch.as_tensor(bad, device=self.device)
+                state = IpmState(*(
+                    torch.where(bad_dev.reshape((K,) + (1,) * (new.ndim - 1)),
+                                old, new)
+                    for new, old in zip(state, prev_state)))
+                regs = regs * torch.where(bad_dev[:, None], 100.0, 1.0)
+            rel_p = primal_res / norm_b
+            rel_d = dual_res / norm_c
+            rel_gap = np.abs(pobj - dobj) / (1.0 + np.abs(pobj) +
+                                             np.abs(dobj))
+            # certified dual bounds: nearly dual-feasible lanes
+            cert = (rel_d < 1e-9) & np.isfinite(dobj) & ~bad
+            best_dual[cert] = np.maximum(best_dual[cert], dobj[cert])
+            done |= (rel_p < tol) & (rel_d < tol) & (rel_gap < tol)
+            if it >= 10 and bool(done.all()):
+                break
+
+        if mh is None:
+            return [(False, -np.inf, None)] * K
+        xs = state.x.cpu().numpy()
+        primal_res, dual_res, _, pobj, dobj = mh[:5]
+        rel_p = primal_res / norm_b
+        rel_d = dual_res / norm_c
+        rel_gap = np.abs(pobj - dobj) / (1.0 + np.abs(pobj) + np.abs(dobj))
+        results: List[Tuple[bool, float, Optional[np.ndarray]]] = []
+        for k in range(K):
+            converged = bool(rel_p[k] < tol and rel_d[k] < tol and
+                             rel_gap[k] < tol)
+            x_orig = None
+            if converged:
+                x_std = xs[k, :self.n_std] * self.col_s
+                x_orig, _, _ = recover_solution(
+                    self.std, x_std, np.zeros(self.m), np.zeros(self.n_std))
+            results.append((converged, float(best_dual[k]), x_orig))
+        COUNTS["converged"] += sum(r[0] for r in results)
+        return results

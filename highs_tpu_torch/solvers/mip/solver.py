@@ -41,6 +41,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import scipy.sparse as _sp
+import torch
 
 from ...constants import (HighsCallbackType as CbT,
                           HighsModelStatus, HighsVarType,
@@ -99,6 +100,8 @@ class _Node:
     # propagation may seed incrementally from the branched columns only
     # when the propagator has not been rebuilt since (cut rows added)
     prop_gen: int = dataclasses.field(compare=False, default=0)
+    # a batched-evaluator result (converged, dual_bound, x) for this node
+    cached: object = dataclasses.field(compare=False, default=None)
 
 
 class _Pseudocost:
@@ -149,16 +152,6 @@ def solve_mip(lp: HighsLp, options: HighsOptions, log=None,
     """Branch-and-cut on `lp`; every relaxation solved by a device
     solver (the IPM, PDLP) runs on `device` (default CUDA)."""
     device = resolve_device(device)
-    batch_k = int(getattr(options, "tpu_mip_batch_nodes", 0))
-    if batch_k == 0 and options.mip_search_simulate_concurrency:
-        batch_k = 8
-    if batch_k == 0 and options.parallel == "on":
-        batch_k = max(2, options.threads) if options.threads else 8
-    if batch_k > 1:
-        raise NotImplementedError(
-            "batched MIP node LPs (tpu_mip_batch_nodes > 1, which "
-            "mip_search_simulate_concurrency and parallel=on also select) "
-            "are not yet ported (ROADMAP queue 1 item 11)")
     t0 = time.perf_counter()
     # ---- per-stage MIP clocks (reference mip/MipTimer.h ~60 clocks;
     # read back with Highs.writeAllClocks / log_dev_level>=2) ----------
@@ -462,15 +455,21 @@ def solve_mip(lp: HighsLp, options: HighsOptions, log=None,
 
     last_duals = {"z": None}
 
-    def solve_node_lp(lo, up, warm_basis=None):
+    def solve_node_lp(lo, up, warm_basis=None, cached=None):
         with _clk("node_lp"):
-            return _solve_node_lp_impl(lo, up, warm_basis)
+            return _solve_node_lp_impl(lo, up, warm_basis, cached)
 
-    def _solve_node_lp_impl(lo, up, warm_basis=None):
+    def _solve_node_lp_impl(lo, up, warm_basis=None, cached=None):
         """Returns (feasible, obj_minimize, x, basis) for the node
         relaxation.  Reduced costs of the last solve are stashed in
-        last_duals["z"] (for reduced-cost fixing)."""
+        last_duals["z"] (for reduced-cost fixing).  `cached` carries a
+        batched-evaluator result (converged, dual_bound, x)."""
         last_duals["z"] = None
+        if cached is not None:
+            converged, dual_bound, xc = cached
+            if converged and xc is not None:
+                return True, dual_bound, xc, None
+            # fall through to the exact engine
         if use_simplex:
             remaining = max(1.0, options.time_limit -
                             (time.perf_counter() - t0))
@@ -1816,6 +1815,42 @@ def solve_mip(lp: HighsLp, options: HighsOptions, log=None,
                 if not nfx or not run_submip(lo2, up2, "RINS"):
                     break
 
+    # ---- batched node evaluation (SURVEY §7.7: open nodes as one
+    # vmapped device program; also the deterministic stand-in for the
+    # reference's parallel workers, mip_search_simulate_concurrency) ----
+    batch_k = int(getattr(options, "tpu_mip_batch_nodes", 0))
+    if batch_k == 0 and options.mip_search_simulate_concurrency:
+        batch_k = 8
+    if batch_k == 0 and options.parallel == "on":
+        # "parallel=on" maps to batched node rounds, the device's stand-in
+        # for the reference's parallel MIP workers
+        batch_k = max(2, options.threads) if options.threads else 8
+    _batch_state = {"ev": None, "rows": -1}
+
+    def get_batch_evaluator():
+        """The evaluator of the current relaxation (rebuilt when cuts
+        change its rows) on the MIP's device.  Unlike the JAX package, a
+        failure to build it raises."""
+        if not use_simplex or _Relax.a_csc is None:
+            return None
+        nrows = _Relax.a_csc.shape[0]
+        if _batch_state["ev"] is None or _batch_state["rows"] != nrows:
+            from .batch_nodes import BatchNodeEvaluator
+            tmpl = HighsLp(
+                num_col=lp.num_col, num_row=nrows,
+                col_cost=lp.col_cost.copy(),
+                col_lower=root_lo_p.copy(),
+                col_upper=root_up_p.copy(),
+                row_lower=np.asarray(_Relax.row_lower,
+                                     dtype=np.float64).copy(),
+                row_upper=np.asarray(_Relax.row_upper,
+                                     dtype=np.float64).copy(),
+                a_matrix=HighsSparseMatrix.from_scipy(_Relax.a_csc),
+                sense=lp.sense)
+            _batch_state["ev"] = BatchNodeEvaluator(tmpl, device=device)
+            _batch_state["rows"] = nrows
+        return _batch_state["ev"]
+
     # ---- restart on heavy root fixing (reference: restart-on-inactive-
     # columns, HighsMipSolverData.cpp:2127-2143 `percentageInactiveIntegers
     # >= 10`, mip_allow_restart): when root-bound work (probing, cut-driven
@@ -2068,7 +2103,7 @@ def solve_mip(lp: HighsLp, options: HighsOptions, log=None,
         and use_simplex and _Relax.a_csc is not None
         and bool(is_int.any())
         and not sos_sets and not bool(is_semi.any())
-        and debug_sol is None
+        and debug_sol is None and batch_k <= 1
         and not options.mip_improving_solution_file
         and not math.isfinite(objective_target)
         and options.mip_max_improving_sols >= 10**9
@@ -2443,8 +2478,35 @@ def solve_mip(lp: HighsLp, options: HighsOptions, log=None,
             if conflicted:
                 continue
 
+        # fill a round of caches via the batched evaluator
+        if batch_k > 1 and node.cached is None:
+            ev = get_batch_evaluator()
+            if ev is not None:
+                round_nodes = [node]
+                while heap and len(round_nodes) < batch_k:
+                    nd2 = heapq.heappop(heap)
+                    if nd2.bound > prune_limit():
+                        continue
+                    round_nodes.append(nd2)
+                if len(round_nodes) > 1:
+                    los = np.stack([nd.lo for nd in round_nodes])
+                    ups = np.stack([nd.up for nd in round_nodes])
+                    # a lane's numerical failure sends the round to the
+                    # exact engine; any other error (the device's) leaves
+                    # run(), where the JAX package swallows every one
+                    try:
+                        res = ev.evaluate(los, ups)
+                    except (ArithmeticError, ValueError,
+                            torch.linalg.LinAlgError):
+                        res = None
+                    if res is not None:
+                        for nd, rr in zip(round_nodes, res):
+                            nd.cached = rr
+                for nd in round_nodes[1:]:
+                    heapq.heappush(heap, nd)
+
         feasible, obj_bound, x, node_basis = solve_node_lp(
-            node.lo, node.up, warm_basis=node.basis)
+            node.lo, node.up, warm_basis=node.basis, cached=node.cached)
         if feasible and x is None and \
                 time.perf_counter() - t0 > options.time_limit:
             # the node's LP stopped at the deadline: the node stays open,
@@ -2543,6 +2605,7 @@ def solve_mip(lp: HighsLp, options: HighsOptions, log=None,
                         nd.basis = np.concatenate([nd.basis, ext])
                 if node_basis is not None:
                     node_basis = np.concatenate([node_basis, ext])
+                _batch_state["ev"] = None  # row count changed
                 if log is not None:
                     log(f"MIP node separation: +{len(keep_cuts)} cuts "
                         f"({_Relax.num_cut_rows} total)")
@@ -2627,7 +2690,8 @@ def solve_mip(lp: HighsLp, options: HighsOptions, log=None,
             other = 1 - plunge_child
             if built[other] is not None:
                 heapq.heappush(heap, built[other])
-            if built[plunge_child] is not None and node.depth < 400:
+            if built[plunge_child] is not None and node.depth < 400 and \
+                    batch_k <= 1:
                 current = built[plunge_child]
             elif built[plunge_child] is not None:
                 heapq.heappush(heap, built[plunge_child])
@@ -2733,7 +2797,8 @@ def solve_mip(lp: HighsLp, options: HighsOptions, log=None,
         other = 1 - plunge_child
         if built[other] is not None:
             heapq.heappush(heap, built[other])
-        if built[plunge_child] is not None and node.depth < 400:
+        if built[plunge_child] is not None and node.depth < 400 and \
+                batch_k <= 1:
             current = built[plunge_child]
         elif built[plunge_child] is not None:
             heapq.heappush(heap, built[plunge_child])

@@ -121,18 +121,27 @@ def test_run_data_covers_the_last_run_only():
     assert h.getInfo().pdlp_iteration_count > 0
 
 
-def test_not_yet_ported_models_raise(tmp_path):
+def test_lp_files_and_batched_mip_match_jax(tmp_path):
     d = _lp_dict()
-    h = highs_tpu_torch.Highs(device="cpu")
-    h.setOptionValue("output_flag", False)
-    lp = lp_from_numpy(dict(d, integrality=np.ones(d["num_col"])))
-    h.passModel(lp)
-    # the MIP runs (tests/test_torch_mip.py); its batched node LPs do not
-    h.setOptionValue("tpu_mip_batch_nodes", 4)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        h.run()
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        h.readModel(str(tmp_path / "model.lp"))
+    # the MIP with batched node LPs: the JAX package's status (the fixed
+    # column at 0.5 makes the integer model infeasible)
+    port, jax = _highs_pair(d, tpu_mip_batch_nodes=4)
+    for hh in (port, jax):
+        hh.getLp().integrality = np.ones(d["num_col"], dtype=np.uint8)
+        hh.run()
+    assert port.getModelStatus().name == jax.getModelStatus().name == \
+        "kInfeasible"
+    # an .lp file the port writes reads back to the JAX facade's optimum
+    path = str(tmp_path / "model.lp")
+    port, jax = _highs_pair(d)
+    assert port.writeModel(path) == highs_tpu_torch.HighsStatus.kOk
+    assert port.readModel(path) == highs_tpu_torch.HighsStatus.kOk
+    for hh in (port, jax):
+        hh.run()
+    assert port.getModelStatus().name == jax.getModelStatus().name == \
+        "kOptimal"
+    assert port.getObjectiveValue() == pytest.approx(
+        jax.getObjectiveValue(), rel=1e-9)
     # 'choose' on a small LP runs the simplex first: the JAX facade's
     # answer, basis and pivot count
     port, jax = _highs_pair(d)

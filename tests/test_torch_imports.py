@@ -26,6 +26,8 @@ from highs_tpu_torch.solvers.ipm.solver import (IpmProblem, IpmState,
                                                 solve_lp_ipm_native)
 from highs_tpu_torch.solvers.qp.ipm_qp import (QpIpmProblem, QpIpmState,
                                                solve_qp_ipm)
+from highs_tpu_torch import capi, cli, modeling
+from highs_tpu_torch.solvers.mip.batch_nodes import BatchNodeEvaluator
 from highs_tpu_torch.solvers.mip.solver import solve_mip
 from highs_tpu_torch.solvers.qp.wrapper import solve_qp
 from highs_tpu_torch.utils.gen_mip import set_cover
@@ -84,6 +86,16 @@ def test_import_leaves_jax_and_highs_tpu_out():
         "import highs_tpu_torch.utils.gen_mip\n"
         "import highs_tpu_torch.tools.mip_anchors\n"
         "import highs_tpu_torch.tools.ipm_route_probe\n"
+        "import highs_tpu_torch.solvers.mip.batch_nodes\n"
+        "import highs_tpu_torch.analysis_api\n"
+        "import highs_tpu_torch.utils.ranging\n"
+        "import highs_tpu_torch.io.lp_format\n"
+        "import highs_tpu_torch.utils.debug\n"
+        "import highs_tpu_torch.utils.matrix_pic\n"
+        "import highs_tpu_torch.modeling\n"
+        "import highs_tpu_torch.capi\n"
+        "import highs_tpu_torch.cli\n"
+        "import highs_tpu_torch.utils.cdouble\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'highs_tpu' or m.startswith('highs_tpu.')]\n"
         "print(','.join(bad))\n")
@@ -220,6 +232,23 @@ CONSTRUCTORS = {
     "mip.solver.solve_mip":
         lambda: solve_mip(convert.lp_from_numpy(set_cover(10, 20, 0.2)),
                           HighsOptions()),
+    "mip.batch_nodes.BatchNodeEvaluator":
+        lambda: BatchNodeEvaluator(_LP),
+    "modeling.Highs": lambda: modeling.Highs(),
+    "capi.Highs_create": lambda: capi.Highs_create(),
+    "capi.Highs_lpCall": lambda: capi.Highs_lpCall(
+        2, 1, 2, capi.kHighsMatrixFormatColwise, 1, 0.0, [1.0, 2.0],
+        [0.0, 0.0], [1.0, 1.0], [1.0], [np.inf], [0, 1], [0, 0],
+        [1.0, 1.0]),
+    "capi.Highs_mipCall": lambda: capi.Highs_mipCall(
+        2, 1, 2, capi.kHighsMatrixFormatColwise, 1, 0.0, [1.0, 2.0],
+        [0.0, 0.0], [1.0, 1.0], [1.0], [np.inf], [0, 1], [0, 0],
+        [1.0, 1.0], [1, 1]),
+    "capi.Highs_qpCall": lambda: capi.Highs_qpCall(
+        2, 1, 2, 2, capi.kHighsMatrixFormatColwise, 1, 1, 0.0, [1.0, 2.0],
+        [0.0, 0.0], [1.0, 1.0], [1.0], [np.inf], [0, 1], [0, 0],
+        [1.0, 1.0], [0, 1], [0, 1], [1.0, 1.0]),
+    "cli.main": lambda: cli.main(["model.mps"]),
 }
 
 

@@ -238,14 +238,15 @@ def test_semi_variable_modification_sequence():
                                           ("mip_search_simulate_concurrency",
                                            True),
                                           ("parallel", "on")])
-def test_batched_node_lps_raise(option, value):
-    d = set_cover(20, 40, 0.1, seed=2)
-    h = highs_tpu_torch.Highs(device="cpu")
-    h.passModel(torch_lp(d))
-    h.setOptionValue("output_flag", False)
-    h.setOptionValue(option, value)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        h.run()
+def test_batched_node_lps_match_jax(option, value):
+    # each option that turns the batched node LPs on: the same answer as
+    # the JAX package (whose batch never runs a round, ROADMAP queue 3)
+    # and as scipy, with a feasible integral incumbent
+    d = set_cover(30, 60, 0.1, seed=2)
+    got, _ = both(d, **{option: value})
+    assert got.getModelStatus().name == "kOptimal"
+    _, ref, _, _ = scipy_milp(d)
+    assert abs(got.getObjectiveValue() - ref) <= REL_GAP * max(1.0, abs(ref))
 
 
 def test_native_library_that_will_not_load_raises(monkeypatch, tmp_path):
