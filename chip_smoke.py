@@ -25,8 +25,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
             product, with the times of the kernel, its plain version and
             one `torch.sparse_csr_tensor @ x` of the same matrix (a
             yardstick only) beside the byte bound of the table;
-4. probe    the gather-rate probe at the shapes of the JAX package's two
-            probes, f32 and f64: exactly equal to `torch.gather`, rates;
+4. probe    the gather-rate probe (16-byte index loads and output
+            stores, a one-wave grid) at the shapes of the JAX package's
+            two probes, f32 and f64: exactly equal to `torch.gather`, its
+            cold time beside its byte bound and `torch.gather`'s, rates;
 5. small    a 256 x 256 block LP through `Highs` on the card and on the
             CPU: the two objectives agree to 1e-6 relative;
 6. formats  a 4,096 x 4,096 synth LP through `Highs(device="cuda")` with
@@ -169,7 +171,23 @@ Phases, each of which fails the run (non-zero exit) when it fails:
             card); a lexicographic two-objective solve of ipm_dense's LP
             on the card (the second objective over the points within 1%
             of the first's optimum), checked by a solve of the second
-            objective with the first fixed as a row.
+            objective with the first fixed as a row;
+18. mesh     PDLP over a mesh: block64k through `Highs().run()` with
+            tpu_matrix_format "blockcsr" and tpu_mesh_shape the machine's
+            card count: kOptimal, phase 7's KKT check, the objective
+            within 1e-6 of upstream HiGHS's, at least 2 d block-CSR
+            launches per PDLP iteration, its iterations beside phase 7's;
+            a multi-axis tpu_mesh_shape and one of more cards than the
+            machine has raise ValueError; block64k's operator row-sharded
+            in block-CSR over 4 shards of the one card
+            (`make_row_sharded`), f32 and f64: K x and K' y against the
+            unsharded kernel (f64: 1e-12, f32: 1e-5, relative to
+            ||(|A| |x|)||_inf), 4 launches a product, the cold times of
+            both; one `solve_pdhg` of block64k (unscaled, f32, tolerance
+            1e-4) on the 4-shard and on the unsharded operator: both
+            kOptimal, their iterations printed; `dryrun_multichip(8)`
+            over the card (every sharded layout within 1e-5 of one
+            device, at least one partial-sum reduction a step).
 
 Kernel times (`ms`, `plain_ms`, `library_ms`) are device times with a
 cold L2, as the PDLP loop finds its operator (`tools/card.py`
@@ -1916,6 +1934,194 @@ def interfaces_phase(device):
     return out
 
 
+def mesh_raises(device):
+    """A multi-axis tpu_mesh_shape, and a mesh of more cards than the
+    machine has, raise ValueError through the facade on the card."""
+    import torch
+    import highs_tpu_torch
+    from highs_tpu_torch.utils.gen_block_lp import block_lp
+
+    out = {}
+    for spec in ("4x2", str(torch.cuda.device_count() + 1)):
+        h = highs_tpu_torch.Highs(device=device)
+        h.setOptionValue("output_flag", False)
+        h.setOptionValue("solver", "hipdlp")
+        h.setOptionValue("tpu_mesh_shape", spec)
+        h.passModel(block_lp(nblocks=2))
+        try:
+            h.run()
+        except ValueError as exc:
+            out[spec] = str(exc)
+            log(f"mesh: tpu_mesh_shape {spec!r} raises ValueError: {exc}")
+            continue
+        raise RuntimeError(f"tpu_mesh_shape {spec!r} did not raise")
+    return out
+
+
+def mesh_products(a, device, mesh4):
+    """K x and K' y of block64k's operator row-sharded in block-CSR over
+    4 shards of one mesh, against the unsharded kernel, in f32 and f64:
+    the error relative to ||(|A| |x|)||_inf, 4 launches a product, and
+    the cold times of both.  Returns (records, the f32 4-shard operator,
+    the f32 unsharded operator)."""
+    import numpy as np
+    import torch
+    from highs_tpu_torch.ops import block_csr
+    from highs_tpu_torch.parallel import shard_ops
+    from highs_tpu_torch.tools.card import time_ms
+
+    t0 = time.perf_counter()
+    one64 = block_csr.from_scipy_block_csr(a, dtype=torch.float64,
+                                           device=device)
+    four64, m_pad = shard_ops.make_row_sharded(a, mesh4, "rows",
+                                               fmt="blockcsr",
+                                               dtype=torch.float64)
+    log(f"mesh: block64k in block-CSR, unsharded "
+        f"({one64.fwd.blocks.shape[0]} tiles of K, "
+        f"{one64.bwd.blocks.shape[0]} of K') and in 4 row shards "
+        f"({[op.fwd.blocks.shape[0] for op in four64.shards]} of K, "
+        f"{[op.bwd.blocks.shape[0] for op in four64.shards]} of K'), "
+        f"built in {time.perf_counter() - t0:.1f} s")
+    abs_one = block_csr.BlockCsrMatrix(
+        one64.fwd._replace(blocks=one64.fwd.blocks.abs()),
+        one64.bwd._replace(blocks=one64.bwd.blocks.abs()))
+    rng = np.random.default_rng(9)
+    records, ops = [], {}
+    for dtype in (torch.float32, torch.float64):
+        name = dtype_name(dtype)
+        if dtype == torch.float64:
+            one, four = one64, four64
+        else:
+            one = block_csr.BlockCsrMatrix(
+                one64.fwd._replace(blocks=one64.fwd.blocks.float()),
+                one64.bwd._replace(blocks=one64.bwd.blocks.float()))
+            four = four64.astype_values(torch.float32)
+        ops[name] = (four, one)
+        for direction in ("mv", "rmv"):
+            x = torch.as_tensor(rng.standard_normal(a.shape[1]),
+                                dtype=dtype, device=device)
+            before = block_csr.LAUNCHES
+            got = getattr(four, direction)(x)
+            sync(device)
+            launches = block_csr.LAUNCHES - before
+            want = getattr(one, direction)(x)
+            scale = getattr(abs_one, direction)(
+                x.abs().double()).abs().max().item()
+            err, rel = relative_error(got, want, scale)
+            tol = TOLERANCE[name]
+            rec = dict(
+                dtype=name, direction=direction, shards=len(four.shards),
+                launches_per_product=launches, max_abs_err=err, rel_err=rel,
+                tolerance=tol,
+                ok=bool(math.isfinite(err) and rel <= tol and
+                        (device.type != "cuda" or launches == 4)),
+                sharded_ms=time_ms(lambda v: getattr(four, direction)(v),
+                                   device, x),
+                unsharded_ms=time_ms(lambda v: getattr(one, direction)(v),
+                                     device, x))
+            log(f"mesh {name} {direction}: 4 shards against the unsharded "
+                f"kernel max_abs_err {err:.3e} rel {rel:.3e} (tol {tol:g}), "
+                f"{launches} launches; cold ms 4 shards "
+                f"{rec['sharded_ms']:.4f}, unsharded "
+                f"{rec['unsharded_ms']:.4f}")
+            records.append(rec)
+    bad = [r for r in records if not r["ok"]]
+    if bad:
+        raise RuntimeError(f"the 4-shard block-CSR products disagree with "
+                           f"the unsharded kernel: {bad}")
+    return records, ops["float32"]
+
+
+def mesh_solve_pdhg(a, b, c, upper, device, four, one):
+    """One solve_pdhg of block64k (min c'x, Ax >= b, 0 <= x <= upper,
+    unscaled, f32, tolerance 1e-4) on the 4-shard operator and on the
+    unsharded one: status, iterations, seconds, launches."""
+    import numpy as np
+    import torch
+    from highs_tpu_torch.ops import block_csr
+    from highs_tpu_torch.solvers.pdlp.pdhg import (PdhgProblem,
+                                                   PdhgSettings, solve_pdhg)
+
+    m, n = a.shape
+    f32 = torch.float32
+
+    def t(v):
+        return torch.as_tensor(np.asarray(v, dtype=np.float64), dtype=f32,
+                               device=device)
+    base = PdhgProblem(
+        k_op=one, b=t(b), c=t(c), lo=t(np.zeros(n)), up=t(upper),
+        is_eq=t(np.zeros(m)), lo_fin=t(np.ones(n)), up_fin=t(np.ones(n)),
+        inv_row_scale=t(np.ones(m)), inv_col_scale=t(np.ones(n)),
+        norm_b=t(np.linalg.norm(b)), norm_c=t(np.linalg.norm(c)))
+    out = {}
+    for name, op in (("unsharded", one), ("4 shards", four)):
+        settings = PdhgSettings(eps_optimal=1e-4, dtype="float32",
+                                iteration_limit=40000, time_limit=120.0)
+        before = block_csr.LAUNCHES
+        t0 = time.perf_counter()
+        res = solve_pdhg(base._replace(k_op=op), n, m, settings)
+        sync(device)
+        seconds = time.perf_counter() - t0
+        launches = block_csr.LAUNCHES - before
+        out[name] = dict(status=res.status.name, iterations=res.iterations,
+                         restarts=res.restarts, seconds=seconds,
+                         primal_obj=res.primal_obj, launches=launches,
+                         rel_gap=res.rel_gap)
+        log(f"mesh solve_pdhg {name}: {res.status.name} in "
+            f"{res.iterations} iterations ({res.restarts} restarts), "
+            f"{seconds:.2f} s, primal obj {res.primal_obj!r} rel gap "
+            f"{res.rel_gap:.3e}, {launches} block-CSR launches")
+    for name, r in out.items():
+        if r["status"] != "kOptimal":
+            raise RuntimeError(f"solve_pdhg on block64k, {name}: "
+                               f"{r['status']}")
+    return out
+
+
+def mesh_phase(device, a, b, c, anchor, block64k_iters):
+    """Phase 18: PDLP over a mesh.  block64k through `Highs().run()` with
+    tpu_mesh_shape the machine's card count; the 4-shard products and a
+    solve_pdhg over 4 shards of one card; dryrun_multichip(8) over the
+    card; the shapes the option refuses."""
+    import numpy as np
+    import torch
+    from highs_tpu_torch.parallel import mesh, shard_ops
+    from highs_tpu_torch.parallel.dryrun import dryrun_multichip
+    from highs_tpu_torch.utils.gen_block_lp import UPPER
+
+    d = torch.cuda.device_count()
+    upper = np.full(a.shape[1], UPPER)
+    reductions = shard_ops.REDUCTIONS
+    launches, iters, seconds = solve_phase(
+        "mesh_block64k", a, b, c, upper,
+        {"tpu_matrix_format": "blockcsr", "tpu_mesh_shape": str(d)},
+        anchor, ["block_csr_spmv"], device)
+    per_iter = launches["block_csr_spmv"] / max(iters, 1)
+    log(f"mesh_block64k: mesh of {d} card(s), {iters} iterations against "
+        f"phase 7's {block64k_iters}; {per_iter:.3f} block-CSR launches "
+        f"per iteration (need >= {2 * d}); {shard_ops.REDUCTIONS - reductions}"
+        f" sums of several partials")
+    if per_iter < 2 * d:
+        raise RuntimeError(f"mesh_block64k: {per_iter:.3f} launches per "
+                           f"iteration on a mesh of {d}")
+    raised = mesh_raises(device)
+    mesh4 = mesh.make_mesh((4,), devices=[device] * 4)
+    products, (four, one) = mesh_products(a, device, mesh4)
+    pdhg_runs = mesh_solve_pdhg(a, b, c, upper, device, four, one)
+    del four, one
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(8, devices=[device] * 8)
+    log(f"mesh: dryrun_multichip(8) over one card in "
+        f"{time.perf_counter() - t0:.1f} s: {dry}")
+    return {"cards": d, "block64k": dict(
+                iterations=iters, seconds=seconds,
+                phase7_iterations=block64k_iters,
+                launches=launches["block_csr_spmv"],
+                launches_per_iteration=per_iter),
+            "raises": raised, "products": products,
+            "solve_pdhg": pdhg_runs, "dryrun": dry}
+
+
 def headline(records, launches, extra=None):
     """One kernel's line: the f32 records (the main path's type), the
     mean of its directions."""
@@ -2017,6 +2223,8 @@ def main() -> int:
     mip_batch = run("mip_batch", mip_batch_phase, device,
                     mip["mip_setcover"]["seconds"])
     interfaces = run("interfaces", interfaces_phase, device)
+    mesh = run("mesh", mesh_phase, device, a64, b64, c64, block64k_anchor,
+               bc_iters)
 
     probe_head = [r for r in probe_records
                   if r["name"] == gather_probe.SHAPES[0][0]]
@@ -2025,7 +2233,8 @@ def main() -> int:
             bc_records, bc_launches["block_csr_spmv"],
             {"path": "block64k", "pdlp_iterations": bc_iters,
              "paths": {"block64k": bc_launches["block_csr_spmv"],
-                       "block64k_avg": avg_launches["block_csr_spmv"]},
+                       "block64k_avg": avg_launches["block_csr_spmv"],
+                       "mesh_block64k": mesh["block64k"]["launches"]},
              "block64k_avg_pdlp_iterations": avg_iters}),
         "gather_probe": headline(
             probe_head, 0,
@@ -2045,7 +2254,7 @@ def main() -> int:
         "formats": formats, "synth50k_seconds": oh_seconds, "ipm": ipm,
         "block64k_avg_seconds": avg_seconds, "batch": batch,
         "simplex": simplex, "qp": qp, "mip": mip, "mip_batch": mip_batch,
-        "interfaces": interfaces, "phase_seconds": phase_s,
+        "interfaces": interfaces, "mesh": mesh, "phase_seconds": phase_s,
         "total_seconds": time.perf_counter() - t_start}
     log(json.dumps(summary))
     log(card_line())

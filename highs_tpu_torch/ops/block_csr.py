@@ -139,9 +139,13 @@ def _spmv_cuda(bc: BlockCsr, x: torch.Tensor) -> torch.Tensor:
           else lib.block_csr_spmv_f64)
     mb = bc.shape[0] // BLOCK
     y = torch.empty(mb * BLOCK, dtype=x.dtype, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = fn(bc.blocks.data_ptr(), bc.block_col.data_ptr(),
-            bc.row_ptr.data_ptr(), x.data_ptr(), y.data_ptr(), mb, stream)
+    # the launch goes to the calling thread's current card: make it x's
+    # (a row shard of parallel/shard_ops may sit on any card)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = fn(bc.blocks.data_ptr(), bc.block_col.data_ptr(),
+                bc.row_ptr.data_ptr(), x.data_ptr(), y.data_ptr(), mb,
+                stream)
     if rc != 0:
         raise RuntimeError(f"block_csr_spmv launch failed: CUDA error {rc}")
     LAUNCHES += 1
@@ -168,6 +172,27 @@ def block_csr_spmv(bc: BlockCsr, x: torch.Tensor) -> torch.Tensor:
     if x.device.type != "cuda":
         raise ValueError(f"no block-CSR kernel for device {x.device}")
     return _spmv_cuda(bc, x)
+
+
+def without_zero_tiles(bc: BlockCsr) -> BlockCsr:
+    """`bc` without its all-zero tiles, such as the layout's fill of an
+    empty block-row.  The kernel writes 0 for a block-row that has no
+    tile, and so does `spmv_plain`, so the products are unchanged (for
+    finite x); only fewer bytes are read."""
+    keep = (bc.blocks != 0).flatten(1).any(1)
+    if bool(keep.all()):
+        return bc
+    idx = keep.nonzero().squeeze(1)
+    block_row = bc.block_row[idx]
+    first = torch.ones_like(block_row)
+    first[1:] = (block_row[1:] != block_row[:-1]).to(first.dtype)
+    rows = torch.arange(bc.shape[0] // BLOCK + 1, dtype=block_row.dtype,
+                        device=block_row.device)
+    return BlockCsr(blocks=bc.blocks[idx], block_row=block_row,
+                    block_col=bc.block_col[idx], first_in_row=first,
+                    row_ptr=torch.searchsorted(block_row, rows).to(
+                        bc.row_ptr.dtype),
+                    shape=bc.shape)
 
 
 class BlockCsrMatrix(NamedTuple):

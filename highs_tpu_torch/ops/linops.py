@@ -463,6 +463,8 @@ def linop_dtype(op) -> torch.dtype:
         return op.a.values().dtype
     if isinstance(op, (BlockCsrMatrix, OneHotSpmv)):
         return op.dtype
+    if hasattr(op, "value_dtype"):  # the operators of parallel/shard_ops
+        return op.value_dtype()
     raise TypeError(f"unknown operator type {type(op).__name__}")
 
 
@@ -479,6 +481,10 @@ def cast_linop(op, dtype):
             val=op.val.to(dtype), val_t=op.val_t.to(dtype),
             tail_val=op.tail_val.to(dtype),
             tail_val_t=op.tail_val_t.to(dtype))
+    if hasattr(op, "astype_values"):  # the operators of parallel/shard_ops
+        if all(isinstance(s, (DenseMatrix, EllMatrix, PanelEllMatrix))
+               for s in op.local_operators()):
+            return op.astype_values(dtype)
     return None
 
 

@@ -489,13 +489,21 @@ def solve_pdhg(problem: PdhgProblem, n: int, m: int,
                x0: Optional[np.ndarray] = None,
                y0: Optional[np.ndarray] = None,
                offset: float = 0.0,
+               mesh=None,
                log=None) -> PdhgResult:
     """Host loop: restart/termination control around the device
-    blocks.  The device is the one the problem's tensors live on."""
+    blocks.  The device is the one the problem's tensors live on.
+
+    With `mesh`, the problem is laid out row-sharded over the mesh
+    (`parallel/mesh.py` `shard_pdhg`): K's row blocks on the mesh's
+    devices, every vector on its home device, where the loop runs."""
     if settings.mode not in ("halpern", "average"):
         raise ValueError(f"unknown PDHG mode {settings.mode!r}")
     t_start = time.perf_counter()
     dtype = torch.float64 if settings.dtype == "float64" else torch.float32
+    if mesh is not None:
+        from ...parallel.mesh import shard_pdhg
+        problem, _ = shard_pdhg(problem, None, mesh)
     device = problem.b.device
 
     def dev(a, dt=dtype):
@@ -571,6 +579,9 @@ def solve_pdhg(problem: PdhgProblem, n: int, m: int,
                     omega=dev(float(data["omega"])))
                 total_iters = int(data["total_iters"])
                 restarts = int(data["restarts"])
+                if mesh is not None:
+                    from ...parallel.mesh import shard_pdhg
+                    problem, state = shard_pdhg(problem, state, mesh)
         except (OSError, ValueError, KeyError, zipfile.BadZipFile):
             pass  # unreadable checkpoint: cold start
 

@@ -23,6 +23,8 @@ from ...models.lp import HighsLp
 from ...models.solution import HighsSolution
 from ...options import HighsOptions
 from ...ops import linops
+from ...parallel.mesh import make_mesh, parse_mesh_shape
+from ...parallel.shard_ops import make_row_sharded
 from .pdhg import PdhgProblem, PdhgSettings, solve_pdhg
 from .preprocess import preprocess_lp, recover_solution
 from .scaling import scale_problem
@@ -106,10 +108,6 @@ def solve_lp_pdlp(lp: HighsLp, options: HighsOptions,
     the f64 host accumulator, whose data is as small as the current
     residual."""
     device = resolve_device(device)
-    if options.tpu_mesh_shape:
-        raise NotImplementedError(
-            "tpu_mesh_shape (multi-device PDLP) is not yet ported: "
-            "ROADMAP queue 1 item 9")
 
     info = PdlpRunInfo()
     if lp.num_row == 0:
@@ -154,6 +152,22 @@ def solve_lp_pdlp(lp: HighsLp, options: HighsOptions,
     n_std, m_std = std.num_col, std.num_row
     n_pad, m_pad = _bucket(n_std), _bucket(m_std)
 
+    # several devices (tpu_mesh_shape "d"): K's rows in d blocks, one per
+    # device, every vector on the mesh's first device
+    mesh = None
+    shape = parse_mesh_shape(options.tpu_mesh_shape)
+    if shape is not None:
+        if len(shape) != 1:
+            raise ValueError(
+                f"tpu_mesh_shape {options.tpu_mesh_shape!r} names "
+                f"{len(shape)} mesh axes; the PDLP solve shards the rows "
+                f"of K over one: give one device count, such as '8'")
+        mesh = make_mesh(shape, device=device)
+        device = mesh.home
+        # row padding must also divide evenly across the mesh
+        unit = 128 * shape[0]
+        m_pad = ((m_pad + unit - 1) // unit) * unit
+
     def padc(v, fill):
         return np.concatenate([v, np.full(n_pad - n_std, fill, dtype=v.dtype)])
 
@@ -174,7 +188,8 @@ def solve_lp_pdlp(lp: HighsLp, options: HighsOptions,
     # vectors, warm start, refinement oracle) lives in the permuted
     # space; the inverse applies once at recovery.
     perm_maps = None
-    if options.tpu_matrix_format == "bucketperm":
+    fmt = options.tpu_matrix_format
+    if mesh is None and fmt == "bucketperm":
         row_perm = linops.bucket_row_perm(scaled_pad)
         col_perm = linops.bucket_row_perm(scaled_pad.T.tocsr())
         scaled_pad = scaled_pad[row_perm][:, col_perm].tocsr()
@@ -187,8 +202,20 @@ def solve_lp_pdlp(lp: HighsLp, options: HighsOptions,
             return padc_nat(v, fill)[col_perm]
 
         perm_maps = (np.argsort(row_perm), np.argsort(col_perm))
-    k_op = linops.from_scipy(scaled_pad, fmt=options.tpu_matrix_format,
-                             dtype=dtype, device=device)
+    if mesh is not None and (
+            fmt in ("ell", "panelell", "blockcsr") or
+            (fmt == "choose" and
+             m_pad * n_pad * dtype.itemsize > (256 << 20))):
+        # per-device row blocks with local transpose tables
+        # (parallel/shard_ops.py): nothing replicated.  `choose` takes
+        # ELL, where the JAX package takes the panel format off the CPU
+        # (ROADMAP "Decisions")
+        k_op, _ = make_row_sharded(scaled_pad, mesh, "rows",
+                                   fmt="ell" if fmt == "choose" else fmt,
+                                   dtype=dtype)
+    else:
+        k_op = linops.from_scipy(scaled_pad, fmt=fmt, dtype=dtype,
+                                 device=device)
 
     def dev(v):
         return torch.as_tensor(v, dtype=dtype, device=device)
@@ -272,7 +299,7 @@ def solve_lp_pdlp(lp: HighsLp, options: HighsOptions,
     timer = getattr(options, "_timer", None)
     t_all = time.perf_counter()
     result = _pdhg_round(problem, n_pad, m_pad, settings, timer,
-                         x0=x0_s, y0=y0_s, offset=std.offset,
+                         x0=x0_s, y0=y0_s, offset=std.offset, mesh=mesh,
                          log=log_callback)
     total_iterations = result.iterations
     total_restarts = result.restarts
@@ -382,7 +409,7 @@ def solve_lp_pdlp(lp: HighsLp, options: HighsOptions,
                 time_limit=max(
                     1.0, settings.time_limit - (time.perf_counter() - t_all)))
             rres = _pdhg_round(rproblem, n_pad, m_pad, rsettings, timer,
-                               offset=0.0, log=log_callback)
+                               offset=0.0, mesh=mesh, log=log_callback)
             total_iterations += rres.iterations
             total_restarts += rres.restarts
             dx = rres.x * inv_col_p

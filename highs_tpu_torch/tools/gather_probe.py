@@ -88,6 +88,15 @@ def gather_probe(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     if table.device != idx.device or not (table.is_contiguous() and
                                           idx.is_contiguous()):
         raise ValueError("table and idx must be contiguous, on one device")
+    if idx.data_ptr() % 16:
+        # the kernel reads the indices as 16-byte vectors
+        raise ValueError("idx must start on a 16-byte boundary (a view "
+                         "that starts inside its storage does not)")
+    if idx.numel() and not table.shape[1]:
+        raise ValueError("an empty table row has no element to gather")
+    if max(table.numel(), idx.numel()) >= 2**31:
+        raise ValueError("table and idx must each hold fewer than 2^31 "
+                         "elements (the kernel's offsets are 32-bit)")
     if table.device.type == "cpu":
         return gather_plain(table, idx)
     if table.device.type != "cuda":

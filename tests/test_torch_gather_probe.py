@@ -62,3 +62,41 @@ def test_kernel_equals_torch_gather_on_card(cuda_device, dtype):
         torch.cuda.synchronize()
         assert gp.LAUNCHES == before + 1
         assert torch.equal(out, gp.gather_plain(table, idx))
+
+
+def _misaligned_idx(rows, width, idx_max):
+    """A contiguous int32 (rows, width) view that starts 4 bytes into its
+    storage: its data pointer is off the 16-byte grid."""
+    flat = torch.randint(0, idx_max, (rows * width + 1,), dtype=torch.int32)
+    return flat[1:].view(rows, width)
+
+
+@pytest.mark.parametrize("case", ["misaligned idx", "empty table row"])
+def test_wrapper_rejects_what_the_kernel_does_not_take(case):
+    # the kernel reads idx as 16-byte vectors and gathers from each row;
+    # the wrapper raises on every device, the CPU's plain version too
+    if case == "misaligned idx":
+        table = torch.zeros((4, 8), dtype=torch.float32)
+        idx = _misaligned_idx(4, 10, 8)
+        assert idx.is_contiguous() and idx.data_ptr() % 16
+        match = "16-byte"
+    else:
+        table = torch.zeros((4, 0), dtype=torch.float64)
+        idx = torch.zeros((4, 3), dtype=torch.int32)
+        match = "empty table row"
+    before = gp.LAUNCHES
+    with pytest.raises(ValueError, match=match):
+        gp.gather_probe(table, idx)
+    assert gp.LAUNCHES == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("width", [1, 3, 5, 130, 4353])
+def test_kernel_scalar_head_and_tail_on_card(cuda_device, dtype, width):
+    # rows whose flat start is not a multiple of 4 elements take the
+    # scalar head, widths not a multiple of 4 the scalar tail
+    table, idx = gp.probe_inputs((7, 300), (7, width), 300, dtype,
+                                 cuda_device)
+    out = gp.gather_probe(table, idx)
+    torch.cuda.synchronize()
+    assert torch.equal(out, gp.gather_plain(table, idx))

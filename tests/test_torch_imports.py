@@ -32,6 +32,9 @@ from highs_tpu_torch.solvers.mip.solver import solve_mip
 from highs_tpu_torch.solvers.qp.wrapper import solve_qp
 from highs_tpu_torch.utils.gen_mip import set_cover
 from highs_tpu_torch.utils.gen_mm_qp import mm_qp_model
+from highs_tpu_torch.parallel.distributed import global_mesh
+from highs_tpu_torch.parallel.dryrun import dryrun_multichip
+from highs_tpu_torch.parallel.mesh import make_mesh
 
 # the tests run in parallel worker processes on shared cores: torch's
 # own thread pool in each of them would oversubscribe the machine
@@ -96,6 +99,10 @@ def test_import_leaves_jax_and_highs_tpu_out():
         "import highs_tpu_torch.capi\n"
         "import highs_tpu_torch.cli\n"
         "import highs_tpu_torch.utils.cdouble\n"
+        "import highs_tpu_torch.parallel.mesh\n"
+        "import highs_tpu_torch.parallel.shard_ops\n"
+        "import highs_tpu_torch.parallel.distributed\n"
+        "import highs_tpu_torch.parallel.dryrun\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'highs_tpu' or m.startswith('highs_tpu.')]\n"
         "print(','.join(bad))\n")
@@ -249,6 +256,9 @@ CONSTRUCTORS = {
         [0.0, 0.0], [1.0, 1.0], [1.0], [np.inf], [0, 1], [0, 0],
         [1.0, 1.0], [0, 1], [0, 1], [1.0, 1.0]),
     "cli.main": lambda: cli.main(["model.mps"]),
+    "parallel.mesh.make_mesh": lambda: make_mesh((1,)),
+    "parallel.distributed.global_mesh": lambda: global_mesh(),
+    "parallel.dryrun.dryrun_multichip": lambda: dryrun_multichip(1),
 }
 
 

@@ -204,13 +204,16 @@ def test_bound_only_lp():
     np.testing.assert_array_equal(port_run[1].col_value, [-1.0, 3.0, 2.0])
 
 
-@pytest.mark.parametrize("name,value,match", [
-    ("tpu_mesh_shape", "2", "not yet ported")])
-def test_options_not_yet_ported_raise(name, value, match):
-    opts = HighsOptions()
-    setattr(opts, name, value)
-    with pytest.raises(NotImplementedError, match=match):
-        solve_lp_pdlp(lp_from_numpy(_sparse_lp()), opts, device="cpu")
+@pytest.mark.parametrize("fmt", ["ell", "dense"])
+def test_mesh_option_runs_like_jax(fmt):
+    # tpu_mesh_shape "2": K's rows in two blocks (ell: row-sharded
+    # operators; dense: the dense K split by rows in solve_pdhg)
+    jax_run, port_run = _solve_both(_sparse_lp(), tpu_matrix_format=fmt,
+                                    tpu_mesh_shape="2",
+                                    pdlp_optimality_tolerance=1e-6)
+    assert int(port_run[0]) == int(HighsModelStatus.kOptimal)
+    _assert_agree(jax_run, port_run)
+    assert port_run[2].iterations == jax_run[2].iterations
 
 
 def test_pdlp_solver_runs_the_average_mode_like_jax():
