@@ -187,7 +187,27 @@ Phases, each of which fails the run (non-zero exit) when it fails:
             1e-4) on the 4-shard and on the unsharded operator: both
             kOptimal, their iterations printed; `dryrun_multichip(8)`
             over the card (every sharded layout within 1e-5 of one
-            device, at least one partial-sum reduction a step).
+            device, at least one partial-sum reduction a step);
+19. graphs   the PDHG inner block on the card: the two step kernels
+            (`csrc/pdhg_step.cu`: `pdhg_primal_step`, `pdhg_dual_step`)
+            against their plain chains (`ops/pdhg_step.py`) at block64k's
+            (65,536) and synth50k's (50,176) widths, f32 and f64, Halpern
+            and average mode, with and without a dual floor y_lo: equal
+            bit for bit, their cold times beside the byte bound; one
+            captured restart window (`solvers/pdlp/graph.py`) against the
+            eager window with the kernels and against the plain chain, on
+            block64k's scaled problem (the f32 cold round of phase 7): the
+            state, restart control and metrics equal bit for bit after 4
+            windows; the device busy share, the wall and the launches per
+            step of block64k's windows, synth50k's and block64k's average
+            blocks with the graphs on (`tools/profile_block64k.py`).
+
+The PDLP phases (5-8, 11, 18) run every ramped block as replays of
+captured CUDA graphs (one restart window, or one chunk of steps, and the
+metrics), each minor step as the two step kernels and the two products;
+the launch counters are kept true across replays.  Phases 7, 8, 11 and
+18 must take the iterations the parent tree took (`PARENT_ITERATIONS`),
+and print the graph replays per block.
 
 Kernel times (`ms`, `plain_ms`, `library_ms`) are device times with a
 cold L2, as the PDLP loop finds its operator (`tools/card.py`
@@ -217,7 +237,12 @@ sys.path.insert(0, HERE)
 TOLERANCE = {"float32": 1e-5, "float64": 1e-12}
 KKT_TOL = 1e-7
 SOLVE_TIME_LIMIT = 600.0
-SOURCES = ["block_csr_spmv", "onehot_spmv", "gather_probe"]
+SOURCES = ["block_csr_spmv", "onehot_spmv", "gather_probe", "pdhg_step"]
+# the PDLP iterations of the phases on the tree before the step kernels
+# and graphs (its chip_smoke.py on an H100): the graphs replay the same
+# arithmetic, so the counts must not move
+PARENT_ITERATIONS = {"block64k": 56160, "synth50k": 48480,
+                     "block64k_avg": 94560, "mesh_block64k": 56160}
 # upstream HiGHS's hipdlp on synth50k: optimal at 6704.2920770 in
 # 47,080 iterations (bench.py:215-220, BENCH_DETAILS.json)
 SYNTH50K_OBJECTIVE = 6704.2920770
@@ -246,7 +271,20 @@ KERNELS = {
                     "highs_tpu/ops/onehot_spmv.py:146"),
     "gather_probe": ("highs_tpu_torch/csrc/gather_probe.cu",
                      "tools/gather_probe.py:79, tools/gather_probe2.py:33"),
+    # no TPU kernel: the elementwise chain XLA fuses in the jitted step
+    "pdhg_primal_step": ("highs_tpu_torch/csrc/pdhg_step.cu",
+                         "highs_tpu/solvers/pdlp/pdhg.py:180 (XLA-fused "
+                         "_halpern_step; :438 _avg_pdhg_step), no "
+                         "pl.pallas_call"),
+    "pdhg_dual_step": ("highs_tpu_torch/csrc/pdhg_step.cu",
+                       "highs_tpu/solvers/pdlp/pdhg.py:180 (XLA-fused "
+                       "_halpern_step; :438 _avg_pdhg_step), no "
+                       "pl.pallas_call"),
 }
+# PDHG widths of the step kernels' phase: block64k and synth50k padded
+STEP_WIDTHS = {"block64k": 65536, "synth50k": 50176}
+# the cold-round problem of phases 7 and 8, for phase 19
+FIRST_ROUND = {}
 
 
 def log(msg: str) -> None:
@@ -593,28 +631,62 @@ def kkt_check(a, b, c, upper, sol):
 
 
 def reset_launches():
-    from highs_tpu_torch.ops import block_csr
-    from highs_tpu_torch.ops import onehot_spmv
+    from highs_tpu_torch.ops import block_csr, onehot_spmv, pdhg_step
+    from highs_tpu_torch.solvers.pdlp import graph
     from highs_tpu_torch.tools import gather_probe
     block_csr.LAUNCHES = 0
     gather_probe.LAUNCHES = 0
     onehot_spmv.LAUNCHES["onehot_spmv"] = 0
+    for name in pdhg_step.LAUNCHES:
+        pdhg_step.LAUNCHES[name] = 0
+    graph.COUNTS.clear()
 
 
 def read_launches():
-    from highs_tpu_torch.ops import block_csr
-    from highs_tpu_torch.ops import onehot_spmv
+    from highs_tpu_torch.ops import block_csr, onehot_spmv, pdhg_step
     from highs_tpu_torch.tools import gather_probe
     return {"block_csr_spmv": block_csr.LAUNCHES,
             "gather_probe": gather_probe.LAUNCHES,
-            "onehot_spmv": onehot_spmv.LAUNCHES["onehot_spmv"]}
+            "onehot_spmv": onehot_spmv.LAUNCHES["onehot_spmv"],
+            **pdhg_step.LAUNCHES}
+
+
+def read_graph_counts():
+    from highs_tpu_torch.solvers.pdlp import graph
+    return dict(graph.COUNTS)
+
+
+class first_round_problem:
+    """Keep the problem of the first `solve_pdhg` call of a run (the
+    cold round) in FIRST_ROUND[name]."""
+
+    def __init__(self, name):
+        self.name = name
+
+    def __enter__(self):
+        from highs_tpu_torch.solvers.pdlp import wrapper
+        self.inner = inner = wrapper.solve_pdhg
+        name = self.name
+
+        def keep(problem, *args, **kwargs):
+            FIRST_ROUND.setdefault(name, problem)
+            return inner(problem, *args, **kwargs)
+        wrapper.solve_pdhg = keep
+        return self
+
+    def __exit__(self, *exc):
+        from highs_tpu_torch.solvers.pdlp import wrapper
+        wrapper.solve_pdhg = self.inner
+        return False
 
 
 def solve_phase(name, a, b, c, upper, options, anchor, path_kernels,
-                device):
+                device, keep_problem=False):
     """One LP through the facade: status, independent KKT, objective
-    against upstream HiGHS, and the path's kernels launched at least
-    twice per PDLP iteration.  Returns (launches, iterations)."""
+    against upstream HiGHS, the path's kernels launched at least twice
+    per PDLP iteration, every block as graph replays and the parent's
+    iterations.  Returns (launches, iterations, seconds, the PDLP
+    loop's numbers)."""
     import numpy as np
     import torch
     import highs_tpu_torch
@@ -632,10 +704,15 @@ def solve_phase(name, a, b, c, upper, options, anchor, path_kernels,
     h.passModel(lp)
     reset_launches()
     t0 = time.perf_counter()
-    h.run()
+    if keep_problem:
+        with first_round_problem(name):
+            h.run()
+    else:
+        h.run()
     sync(device)
     seconds = time.perf_counter() - t0
     launches = read_launches()
+    graphs = read_graph_counts()
     status = h.getModelStatus()
     rd = h.getRunData()
     iters = int(h.getInfo().pdlp_iteration_count)
@@ -648,12 +725,22 @@ def solve_phase(name, a, b, c, upper, options, anchor, path_kernels,
         f"postsolve_s {rd.postsolve_time:.3f} "
         f"presolved {rd.presolved_model_num_row}x"
         f"{rd.presolved_model_num_col} kernel_launches {launches}")
+    blocks = graphs.get("metrics", 0)
+    per_iter = {k: round(v / max(iters, 1), 3) for k, v in launches.items()}
     log(f"{name}: PDHG rounds {timer.num_calls('pdlp_round')} in "
         f"{pdhg_s:.3f} s; wall per "
         f"step {1e3 * pdhg_s / max(iters, 1):.4f} ms; launches per "
-        f"iteration {[round(v / max(iters, 1), 3) for v in launches.values()]}")
+        f"iteration {per_iter}; "
+        f"graphs captured {graphs.get('captures', 0)}, blocks {blocks}, "
+        f"replays per block {graphs.get('replays', 0) / max(blocks, 1):.2f}")
     if status != highs_tpu_torch.HighsModelStatus.kOptimal:
         raise RuntimeError(f"{name}: status {status!r}, not kOptimal")
+    if device.type == "cuda" and not blocks:
+        raise RuntimeError(f"{name}: no PDHG block ran as graph replays")
+    want_iters = PARENT_ITERATIONS.get(name)
+    if want_iters is not None and iters != want_iters:
+        raise RuntimeError(f"{name}: {iters} iterations, the parent tree "
+                           f"took {want_iters}")
     rel_p, rel_d, gap, pobj, dobj = kkt_check(a, b, c, upper,
                                               h.getSolution())
     log(f"{name}: independent f64 KKT rel_primal {rel_p:.3e} "
@@ -667,11 +754,18 @@ def solve_phase(name, a, b, c, upper, options, anchor, path_kernels,
     if not rel_obj <= 1e-6:
         raise RuntimeError(f"{name}: objective differs from upstream HiGHS")
     for kernel in path_kernels:
-        if device.type == "cuda" and launches[kernel] < 2 * iters:
+        # two products an iteration; one launch of each step kernel
+        need = 1 if kernel.startswith("pdhg_") else 2
+        if device.type == "cuda" and launches[kernel] < need * iters:
             raise RuntimeError(f"{name}: {launches[kernel]} launches of "
                                f"{kernel} for {iters} iterations (need "
-                               ">= 2 per iteration)")
-    return launches, iters, seconds
+                               f">= {need} per iteration)")
+    return launches, iters, seconds, dict(
+        wall_ms_per_step=1e3 * pdhg_s / max(iters, 1), blocks=blocks,
+        replays_per_block=graphs.get("replays", 0) / max(blocks, 1),
+        captures=graphs.get("captures", 0),
+        launches_per_iteration={k: v / max(iters, 1)
+                                for k, v in launches.items()})
 
 
 def feasibility_check(lp, sol):
@@ -2092,7 +2186,7 @@ def mesh_phase(device, a, b, c, anchor, block64k_iters):
     d = torch.cuda.device_count()
     upper = np.full(a.shape[1], UPPER)
     reductions = shard_ops.REDUCTIONS
-    launches, iters, seconds = solve_phase(
+    launches, iters, seconds, walls = solve_phase(
         "mesh_block64k", a, b, c, upper,
         {"tpu_matrix_format": "blockcsr", "tpu_mesh_shape": str(d)},
         anchor, ["block_csr_spmv"], device)
@@ -2117,9 +2211,196 @@ def mesh_phase(device, a, b, c, anchor, block64k_iters):
                 iterations=iters, seconds=seconds,
                 phase7_iterations=block64k_iters,
                 launches=launches["block_csr_spmv"],
-                launches_per_iteration=per_iter),
+                launches_pdhg_primal_step=launches["pdhg_primal_step"],
+                launches_pdhg_dual_step=launches["pdhg_dual_step"],
+                launches_per_iteration=per_iter, pdlp=walls),
             "raises": raised, "products": products,
             "solve_pdhg": pdhg_runs, "dryrun": dry}
+
+
+def step_inputs(n, m, dtype, with_y_lo, device, seed):
+    """Inputs of the two step kernels at widths (n, m): seeded vectors
+    with infinite and finite bounds, a quarter equality rows, the step
+    size, primal weight and step count of a run."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+
+    def t(v, dt=dtype):
+        return torch.as_tensor(np.asarray(v), dtype=dt, device=device)
+    lo = np.where(rng.uniform(size=n) < 0.8, 0.0, -np.inf)
+    up = np.where(rng.uniform(size=n) < 0.6, rng.uniform(1, 5, n), np.inf)
+    is_eq = (rng.uniform(size=m) < 0.25).astype(np.float64)
+    return dict(
+        x=t(np.clip(rng.standard_normal(n), lo, up)),
+        c=t(rng.standard_normal(n)), aty=t(rng.standard_normal(n)),
+        lo=t(lo), up=t(up),
+        x_anchor=t(rng.standard_normal(n)), y=t(rng.standard_normal(m)),
+        b=t(rng.standard_normal(m)), ax_r=t(rng.standard_normal(m)),
+        is_eq=t(is_eq),
+        y_lo=t(-rng.uniform(0, 0.5, m)) if with_y_lo else None,
+        y_anchor=t(rng.standard_normal(m)), eta=t(0.0123), omega=t(1.7),
+        k=t(37, torch.int32))
+
+
+def same_bits(got, want) -> bool:
+    """Equal bit for bit (NaN payloads included)."""
+    import torch
+    ints = {torch.float32: torch.int32, torch.float64: torch.int64}
+
+    def bits(t):
+        return t.view(ints[t.dtype]) if t.dtype in ints else t
+    return len(got) == len(want) and all(
+        g.dtype == w.dtype and g.shape == w.shape and
+        torch.equal(bits(g), bits(w)) for g, w in zip(got, want))
+
+
+def step_kernel_records(device):
+    """The two step kernels against their plain chains, with times."""
+    import torch
+    from highs_tpu_torch.ops import pdhg_step
+    from highs_tpu_torch.tools.card import bound_ms, call_ms, time_ms
+
+    records = []
+    for path, width in STEP_WIDTHS.items():
+        for dtype in (torch.float32, torch.float64):
+            item = torch.tensor([], dtype=dtype).element_size()
+            for mode in pdhg_step.MODES:
+                for with_y_lo in (False, True):
+                    v = step_inputs(width, width, dtype, with_y_lo, device,
+                                    seed=len(records))
+                    gamma = 1.0 if mode == "average" else 0.9
+                    p_args = (v["x"], v["c"], v["aty"], v["lo"], v["up"],
+                              v["x_anchor"], v["eta"], v["omega"], v["k"],
+                              gamma, mode)
+                    d_args = (v["y"], v["b"], v["ax_r"], v["is_eq"],
+                              v["y_lo"], v["y_anchor"], v["eta"],
+                              v["omega"], v["k"], gamma, mode)
+                    cases = [("pdhg_dual_step", pdhg_step.dual_step,
+                              pdhg_step.dual_step_plain, d_args,
+                              (5 + with_y_lo + 2) * width * item +
+                              2 * item + 8)]
+                    if not with_y_lo:  # the primal half has no y_lo
+                        cases.insert(0, (
+                            "pdhg_primal_step", pdhg_step.primal_step,
+                            pdhg_step.primal_step_plain, p_args,
+                            9 * width * item + 2 * item + 4))
+                    for name, kernel, plain, args, nbytes in cases:
+                        before = pdhg_step.LAUNCHES[name]
+                        got = kernel(*args)
+                        sync(device)
+                        if device.type == "cuda" and \
+                                pdhg_step.LAUNCHES[name] != before + 1:
+                            raise RuntimeError(f"{name} did not launch its "
+                                               "kernel on a CUDA tensor")
+                        want = plain(*args)
+                        equal = same_bits(got, want)
+                        err = max((g.double() - w.double()).abs().nan_to_num(
+                            0.0).max().item() for g, w in zip(got, want)
+                            if g.is_floating_point())
+                        # a handful of operations an element: bytes bind
+                        b_ms, b_by = bound_ms(nbytes, 12.0 * width, dtype)
+                        rec = dict(
+                            name=name, path=path, width=width,
+                            dtype=dtype_name(dtype), mode=mode,
+                            y_lo=with_y_lo, equal_bits=equal,
+                            max_abs_err=err, ok=equal,
+                            ms=time_ms(kernel, device, *args),
+                            call_ms=call_ms(lambda: kernel(*args), device),
+                            plain_ms=time_ms(plain, device, *args),
+                            library_ms=None, bound_ms=b_ms, bound_by=b_by)
+                        log(f"graphs {name} {path} {rec['dtype']} {mode} "
+                            f"y_lo {with_y_lo}: equal bits {equal} "
+                            f"(max abs diff {err:.3e}) kernel_ms "
+                            f"{rec['ms']:.4f} (per call "
+                            f"{rec['call_ms']:.4f}) plain_ms "
+                            f"{rec['plain_ms']:.4f} bound_us "
+                            f"{b_ms * 1e3:.2f} ({b_by})")
+                        records.append(rec)
+    bad = [r for r in records if not r["ok"]]
+    if bad:
+        raise RuntimeError(f"step kernels differ from their plain chains: "
+                           f"{bad}")
+    return records
+
+
+def window_check(problem, device, n_windows=4):
+    """One captured restart window replayed n_windows times against the
+    eager windows with the kernels and with the plain chain, from the
+    same start on `problem`: state, restart control and metrics."""
+    import math as _m
+    import torch
+    from highs_tpu_torch.solvers.pdlp import graph, pdhg
+
+    dtype = problem.c.dtype
+    n, m = problem.c.shape[0], problem.b.shape[0]
+    x = torch.minimum(torch.clamp_min(problem.lo, 0.0), problem.up)
+    y = torch.zeros(m, dtype=dtype, device=device)
+    eta = 0.998 / float(pdhg.power_method(problem.k_op, n, 30, dtype,
+                                          device))
+    state = pdhg.PdhgState(
+        x=x, y=y, x_pd=x, y_pd=y, x_anchor=x, y_anchor=y,
+        aty=problem.k_op.rmv(y),
+        k=torch.zeros((), dtype=torch.int32, device=device),
+        eta=torch.tensor(eta, dtype=dtype, device=device),
+        omega=torch.tensor(1.0, dtype=dtype, device=device))
+
+    def ctl():
+        return pdhg.RestartCtl(
+            fpe_init=torch.tensor(_m.inf, dtype=dtype, device=device),
+            fpe_last=torch.tensor(_m.inf, dtype=dtype, device=device),
+            fresh=torch.ones((), dtype=torch.bool, device=device),
+            total_k=torch.zeros((), dtype=torch.int32, device=device),
+            n_restarts=torch.zeros((), dtype=torch.int32, device=device))
+    theta = torch.tensor(0.5, dtype=dtype, device=device)
+    runner = graph.GraphBlocks(problem, 40, graph.cuda_graph
+                               if device.type == "cuda"
+                               else graph.eager_recorder)
+    got = runner.windows(state, ctl(), n_windows, 1.0, 40, theta, None)
+    got = [type(part)(*(t.clone() for t in part)) for part in got]
+    runner.close()
+    eager = pdhg.pdhg_block_windows(problem, state, ctl(), n_windows, 1.0,
+                                    40, theta)
+    plain = pdhg.pdhg_block_windows(problem, state, ctl(), n_windows, 1.0,
+                                    40, theta, plain=True)
+    sync(device)
+    flat = [t for part in got for t in part]
+    out = dict(
+        windows=n_windows,
+        graph_equals_eager=same_bits(flat, [t for p in eager for t in p]),
+        graph_equals_plain=same_bits(flat, [t for p in plain for t in p]),
+        restarts=int(got[1].n_restarts), primal_res=float(got[2].primal_res))
+    log(f"graphs: {n_windows} captured windows on block64k's scaled "
+        f"problem: equal to the eager windows {out['graph_equals_eager']}, "
+        f"to the plain chain {out['graph_equals_plain']} ({out['restarts']} "
+        f"restarts, primal residual {out['primal_res']!r})")
+    if not (out["graph_equals_eager"] and out["graph_equals_plain"]):
+        raise RuntimeError(f"captured window differs: {out}")
+    return out
+
+
+def graphs_phase(device):
+    """Phase 19: the step kernels, a captured window, the busy share."""
+    from highs_tpu_torch.tools import profile_block64k
+
+    records = step_kernel_records(device)
+    window = window_check(FIRST_ROUND["block64k"], device)
+    busy = {}
+    for name, problem, mode in (
+            ("block64k", FIRST_ROUND["block64k"], "halpern"),
+            ("synth50k", FIRST_ROUND["synth50k"], "halpern"),
+            ("block64k_avg", FIRST_ROUND["block64k"], "average")):
+        busy[name] = profile_block64k.profile_blocks(problem, device, mode)
+        w = busy[name]
+        log(f"graphs: {name} {mode} blocks, graphs on: wall "
+            f"{w['wall_ms_per_step']:.4f} ms a step (op by op "
+            f"{w['eager_wall_ms_per_step']:.4f}), device "
+            f"{w['device_ms_per_step']} ms a step, busy share "
+            f"{w['device_busy_share']}, kernels a step "
+            f"{w['kernels_per_step']}, launches a step "
+            f"{w['launches_per_step']}")
+    FIRST_ROUND.clear()
+    return records, {"window": window, "busy": busy}
 
 
 def headline(records, launches, extra=None):
@@ -2148,7 +2429,8 @@ def main() -> int:
               "False)", file=sys.stderr)
         return 1
     import numpy as np
-    from highs_tpu_torch.ops import block_csr, cuda_build, onehot_spmv
+    from highs_tpu_torch.ops import (block_csr, cuda_build, onehot_spmv,
+                                     pdhg_step)
     from highs_tpu_torch.tools import gather_probe
     from highs_tpu_torch.tools.card import card_line
     from highs_tpu_torch.utils.gen_block_lp import UPPER, gen_block_lp
@@ -2167,6 +2449,7 @@ def main() -> int:
     block_csr._lib()
     onehot_spmv._lib()
     gather_probe._lib()
+    pdhg_step._lib()
     for name, (secs, out) in cuda_build.BUILD_INFO.items():
         log(f"build {name}: nvcc {secs:.2f} s")
         for line in out.strip().splitlines():
@@ -2200,22 +2483,23 @@ def main() -> int:
                    "gather_probe": probe_records})
     run("small", small_phase, device)
     formats = run("formats", formats_phase, device)
-    bc_launches, bc_iters, _ = run(
+    step_kernels = ["pdhg_primal_step", "pdhg_dual_step"]
+    bc_launches, bc_iters, _, bc_walls = run(
         "block64k", solve_phase, "block64k", a64, b64, c64,
         np.full(a64.shape[1], UPPER), {}, block64k_anchor,
-        ["block_csr_spmv"], device)
-    oh_launches, oh_iters, oh_seconds = run(
+        ["block_csr_spmv"] + step_kernels, device, True)
+    oh_launches, oh_iters, oh_seconds, oh_walls = run(
         "synth50k", solve_phase, "synth50k", a50, b50, c50,
         np.full(a50.shape[1], UPPER),
         {"solver": "hipdlp", "tpu_matrix_format": "onehot"},
-        SYNTH50K_OBJECTIVE, ["onehot_spmv"], device)
+        SYNTH50K_OBJECTIVE, ["onehot_spmv"] + step_kernels, device, True)
 
     ipm = {"ipm_dense": run("ipm_dense", ipm_dense_phase, device),
            "ipm_sparse": run("ipm_sparse", ipm_sparse_phase, device)}
-    avg_launches, avg_iters, avg_seconds = run(
+    avg_launches, avg_iters, avg_seconds, avg_walls = run(
         "block64k_avg", solve_phase, "block64k_avg", a64, b64, c64,
         np.full(a64.shape[1], UPPER), {"solver": "pdlp"}, block64k_anchor,
-        ["block_csr_spmv"], device)
+        ["block_csr_spmv"] + step_kernels, device)
     batch = run("batch", batch_phase, device)
     simplex = run("simplex", simplex_phase, device)
     qp = run("qp", qp_phase, device)
@@ -2225,6 +2509,8 @@ def main() -> int:
     interfaces = run("interfaces", interfaces_phase, device)
     mesh = run("mesh", mesh_phase, device, a64, b64, c64, block64k_anchor,
                bc_iters)
+    step_records, graphs = run("graphs", graphs_phase, device)
+    check_timings({"pdhg_step": step_records})
 
     probe_head = [r for r in probe_records
                   if r["name"] == gather_probe.SHAPES[0][0]]
@@ -2246,11 +2532,27 @@ def main() -> int:
             {"path": "synth50k", "pdlp_iterations": oh_iters,
              "library": "torch.sparse_csr_tensor @ x of the same matrix"}),
     }
+    for name in step_kernels:
+        head = [r for r in step_records
+                if r["name"] == name and r["path"] == "block64k" and
+                r["mode"] == "halpern" and not r["y_lo"]]
+        lines[name] = headline(head, bc_launches[name], {
+            "path": "block64k", "pdlp_iterations": bc_iters,
+            "paths": {"block64k": bc_launches[name],
+                      "synth50k": oh_launches[name],
+                      "block64k_avg": avg_launches[name],
+                      "mesh_block64k": mesh["block64k"]["launches_" + name]},
+            "library": None,
+            "all_variants": [r for r in step_records if r["name"] == name]})
     lines["gather_probe"]["variants"] = probe_head
     summary = {"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0],
          "replaces": KERNELS[name][1], **lines[name]}
-        for name in ("block_csr_spmv", "onehot_spmv", "gather_probe")],
+        for name in ("block_csr_spmv", "onehot_spmv", "gather_probe",
+                     *step_kernels)],
+        "pdlp_walls": {"block64k": bc_walls, "synth50k": oh_walls,
+                       "block64k_avg": avg_walls},
+        "graphs": graphs,
         "formats": formats, "synth50k_seconds": oh_seconds, "ipm": ipm,
         "block64k_avg_seconds": avg_seconds, "batch": batch,
         "simplex": simplex, "qp": qp, "mip": mip, "mip_batch": mip_batch,

@@ -1,0 +1,185 @@
+"""The elementwise chain of one PDHG step, as two CUDA kernels.
+
+A PDHG step of either engine mode is two products around an elementwise
+chain: the primal half (gradient step, box projection, reflection, and
+the Halpern blend or the average mode's running sum) feeds `K x_r`, and
+the dual half (gradient step, cone projection, and the blend or the sum)
+feeds `K' y`.  The JAX package leaves the chain to XLA, which fuses it
+inside the jitted inner block (`highs_tpu/solvers/pdlp/pdhg.py:180`
+`_halpern_step`, `:438` `_avg_pdhg_step`); PyTorch issues it one
+operation at a time.  `csrc/pdhg_step.cu` computes each half in one
+launch, reading the step size, the primal weight and the step count on
+the card, so that a captured CUDA graph replays it with no host value.
+
+`primal_step` and `dual_step` launch the kernels on a CUDA tensor and
+take the plain versions, `primal_step_plain` and `dual_step_plain`, on
+a CPU tensor.  The plain versions are the chain as PyTorch computes it;
+the kernels round every operation as they do and equal them bit for bit
+on the card.  `mode` is "halpern" (x_out = the blended iterate) or
+"average" (x_out = x_anchor + x_pd, the running sum).
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+MODES = ("halpern", "average")
+
+# launches of each CUDA kernel in this process (each wrapper call that
+# launches one adds one)
+LAUNCHES = {"pdhg_primal_step": 0, "pdhg_dual_step": 0}
+
+_LIB = None
+
+
+def halpern_weights(k: torch.Tensor, dtype: torch.dtype):
+    """(w, 1 - w) with w = (k + 1) / (k + 2), from the step count k."""
+    kf = k.to(dtype)
+    w = (kf + 1.0) / (kf + 2.0)
+    return w, 1.0 - w
+
+
+def primal_step_plain(x, c, aty, lo, up, x_anchor, eta, omega, k,
+                      gamma: float, mode: str, weights=None):
+    """(x_pd, x_r, x_out): x_pd = min(max(x - tau (c - aty), lo), up)
+    with tau = eta / omega, x_r = 2 x_pd - x, and x_out the Halpern
+    blend w (gamma x_r + (1 - gamma) x) + (1 - w) x_anchor with
+    w = (k + 1) / (k + 2), or in average mode x_anchor + x_pd.
+    `weights`: `halpern_weights(k, ...)` where the caller has them."""
+    tau = eta / omega
+    x_pd = torch.minimum(torch.maximum(x - tau * (c - aty), lo), up)
+    x_r = 2.0 * x_pd - x
+    if mode == "average":
+        return x_pd, x_r, x_anchor + x_pd
+    w, wc = halpern_weights(k, x.dtype) if weights is None else weights
+    return x_pd, x_r, w * (gamma * x_r + (1.0 - gamma) * x) + wc * x_anchor
+
+
+def dual_step_plain(y, b, ax_r, is_eq, y_lo, y_anchor, eta, omega, k,
+                    gamma: float, mode: str, weights=None):
+    """(y_pd, y_out, k + 1): y_pd = y_raw = y + sigma (b - ax_r) on
+    equality rows and max(y_raw, y_lo) (y_lo None: 0) on the others,
+    with sigma = eta * omega; y_out the Halpern blend of the reflection
+    2 y_pd - y, or in average mode y_anchor + y_pd."""
+    sigma = eta * omega
+    y_raw = y + sigma * (b - ax_r)
+    y_cone = (torch.clamp_min(y_raw, 0.0) if y_lo is None
+              else torch.maximum(y_raw, y_lo))
+    y_pd = torch.where(is_eq > 0, y_raw, y_cone)
+    if mode == "average":
+        return y_pd, y_anchor + y_pd, k + 1
+    y_r = 2.0 * y_pd - y
+    w, wc = halpern_weights(k, y.dtype) if weights is None else weights
+    return (y_pd, w * (gamma * y_r + (1.0 - gamma) * y) + wc * y_anchor,
+            k + 1)
+
+
+def _lib():
+    global _LIB
+    if _LIB is None:
+        from .cuda_build import load_library
+        lib = load_library("pdhg_step")
+        ptr = ctypes.c_void_p
+        for fn in (lib.pdhg_primal_step_f32, lib.pdhg_primal_step_f64,
+                   lib.pdhg_dual_step_f32, lib.pdhg_dual_step_f64):
+            fn.argtypes = ([ptr] * 9 + [ctypes.c_double, ctypes.c_double,
+                                        ctypes.c_int] + [ptr] * 3 +
+                           [ctypes.c_longlong, ptr])
+            fn.restype = ctypes.c_int
+        _LIB = lib
+    return _LIB
+
+
+def _check(vectors, scalars, k, mode):
+    """The device of the inputs after checking what the kernels take:
+    1-D contiguous vectors of one length, one float type and one device;
+    0-dim eta and omega of that type; a 0-dim int32 k."""
+    if mode not in MODES:
+        raise ValueError(f"unknown PDHG mode {mode!r}")
+    first = vectors[0]
+    if first.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"the PDHG step takes float32 or float64, not "
+                        f"{first.dtype}")
+    for v in vectors:
+        if v.dim() != 1 or v.shape != first.shape:
+            raise ValueError(f"vector of shape {tuple(v.shape)}, expected "
+                             f"{tuple(first.shape)}")
+        if v.dtype != first.dtype:
+            raise TypeError(f"vectors of {v.dtype} and {first.dtype}")
+    for s in scalars:
+        if s.dim() != 0 or s.dtype != first.dtype:
+            raise TypeError(f"eta and omega must be 0-dim {first.dtype}, "
+                            f"not {s.dtype} of shape {tuple(s.shape)}")
+    if k.dim() != 0 or k.dtype != torch.int32:
+        raise TypeError(f"k must be a 0-dim int32, not {k.dtype} of shape "
+                        f"{tuple(k.shape)}")
+    device = first.device
+    for t in (*vectors, *scalars, k):
+        if t.device != device:
+            raise ValueError(f"inputs on {t.device} and {device}")
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no PDHG step kernel for device {device}")
+    if device.type == "cuda":
+        for t in (*vectors, *scalars, k):
+            if not t.is_contiguous():
+                raise ValueError("the PDHG step kernels take contiguous "
+                                 "tensors")
+    return device
+
+
+def _launched(name: str, rc: int):
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+    LAUNCHES[name] += 1
+
+
+def primal_step(x, c, aty, lo, up, x_anchor, eta, omega, k, gamma: float,
+                mode: str):
+    """`primal_step_plain`'s (x_pd, x_r, x_out): one kernel launch on a
+    CUDA tensor, the plain version on a CPU tensor."""
+    device = _check((x, c, aty, lo, up, x_anchor), (eta, omega), k, mode)
+    if device.type == "cpu":
+        return primal_step_plain(x, c, aty, lo, up, x_anchor, eta, omega,
+                                 k, gamma, mode)
+    lib = _lib()
+    fn = (lib.pdhg_primal_step_f32 if x.dtype == torch.float32
+          else lib.pdhg_primal_step_f64)
+    x_pd, x_r, x_out = (torch.empty_like(x) for _ in range(3))
+    with torch.cuda.device(device):
+        rc = fn(x.data_ptr(), c.data_ptr(), aty.data_ptr(), lo.data_ptr(),
+                up.data_ptr(), x_anchor.data_ptr(), eta.data_ptr(),
+                omega.data_ptr(), k.data_ptr(), float(gamma),
+                1.0 - float(gamma), int(mode == "halpern"),
+                x_pd.data_ptr(), x_r.data_ptr(), x_out.data_ptr(),
+                x.shape[0], torch.cuda.current_stream(device).cuda_stream)
+    _launched("pdhg_primal_step", rc)
+    return x_pd, x_r, x_out
+
+
+def dual_step(y, b, ax_r, is_eq, y_lo: Optional[torch.Tensor], y_anchor,
+              eta, omega, k, gamma: float, mode: str):
+    """`dual_step_plain`'s (y_pd, y_out, k + 1): one kernel launch on a
+    CUDA tensor, the plain version on a CPU tensor."""
+    vectors = (y, b, ax_r, is_eq, y_anchor) + (() if y_lo is None
+                                               else (y_lo,))
+    device = _check(vectors, (eta, omega), k, mode)
+    if device.type == "cpu":
+        return dual_step_plain(y, b, ax_r, is_eq, y_lo, y_anchor, eta,
+                               omega, k, gamma, mode)
+    lib = _lib()
+    fn = (lib.pdhg_dual_step_f32 if y.dtype == torch.float32
+          else lib.pdhg_dual_step_f64)
+    y_pd, y_out = torch.empty_like(y), torch.empty_like(y)
+    k_next = torch.empty_like(k)
+    with torch.cuda.device(device):
+        rc = fn(y.data_ptr(), b.data_ptr(), ax_r.data_ptr(),
+                is_eq.data_ptr(), None if y_lo is None else y_lo.data_ptr(),
+                y_anchor.data_ptr(), eta.data_ptr(), omega.data_ptr(),
+                k.data_ptr(), float(gamma), 1.0 - float(gamma),
+                int(mode == "halpern"), y_pd.data_ptr(), y_out.data_ptr(),
+                k_next.data_ptr(), y.shape[0],
+                torch.cuda.current_stream(device).cuda_stream)
+    _launched("pdhg_dual_step", rc)
+    return y_pd, y_out, k_next

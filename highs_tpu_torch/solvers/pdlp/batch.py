@@ -52,11 +52,13 @@ def batched_pdhg_windows(problem: PdhgProblem, state: PdhgState,
                          interval: int, theta: torch.Tensor):
     """The single-instance restart windows (pdhg.pdhg_block_windows),
     vmapped over the leading batch dimension of a dense-K problem, its
-    state and its restart control."""
+    state and its restart control.  The steps take the plain chain
+    (`ops/pdhg_step.py` `primal_step_plain`, `dual_step_plain`): a
+    kernel bound through ctypes cannot run under vmap."""
     def one(k_a, vecs, state, ctl):
         prob = PdhgProblem(k_op=DenseMatrix(k_a), **vecs)
         return pdhg_block_windows(prob, state, ctl, n_windows, gamma,
-                                  interval, theta)
+                                  interval, theta, plain=True)
     vecs = {f: getattr(problem, f) for f in _VECTORS}
     return torch.func.vmap(one)(problem.k_op.a, vecs, state, ctl)
 

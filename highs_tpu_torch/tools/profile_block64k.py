@@ -18,10 +18,12 @@ form, scaling, operator build), each PDHG round (the refinement's host
 KKT oracle runs inside its round), recovery, and the rest of the
 solve, by timing the wrapper's steps from outside.  Then it
 runs 10 restart windows (400 Halpern steps; with `--solver pdlp` one
-average-mode block of 400 steps and its two metric sets) of the final
-problem once plainly, for the wall time of a step, and once under
-`torch.profiler`, for the device time of a step by kernel; their ratio
-is the device's busy share.  Prints one JSON object as its last line and writes it to
+average-mode block of 400 steps and its two metric sets) of the cold
+round's problem (`profile_blocks`) as replays of captured CUDA graphs,
+as `solve_pdhg` runs them on one card: once for the wall time of a step
+(and once op by op beside it), and once under `torch.profiler`, for the
+device time of a step by kernel; their ratio is the device's busy
+share.  Prints one JSON object as its last line and writes it to
 `--out`.  Needs a CUDA card.
 """
 from __future__ import annotations
@@ -37,7 +39,7 @@ import torch
 
 from .. import Highs, HighsModelStatus
 from ..ops import block_csr, onehot_spmv
-from ..solvers.pdlp import pdhg, wrapper
+from ..solvers.pdlp import graph, pdhg, wrapper
 from ..utils.gen_block_lp import NBLOCKS, block_lp
 from ..utils.gen_synth_lp import synth_lp
 from .card import card_line
@@ -60,9 +62,9 @@ def _timed(module, name, sink):
     setattr(module, name, run)
 
 
-def _profile_windows(problem, dtype, device, mode="halpern"):
-    """Wall and device time of one step: Halpern steps in 40-step
-    windows, or one average-mode block of as many steps."""
+def _start(problem, dtype, device):
+    """A cold start on `problem`: x at its bounds' projection of 0, y 0,
+    and the restart control of a fresh solve."""
     n = problem.c.shape[0]
     m = problem.b.shape[0]
     x = torch.minimum(torch.clamp_min(problem.lo, 0.0), problem.up)
@@ -73,41 +75,64 @@ def _profile_windows(problem, dtype, device, mode="halpern"):
         k=torch.zeros((), dtype=torch.int32, device=device),
         eta=torch.tensor(0.5 / np.sqrt(n), dtype=dtype, device=device),
         omega=torch.tensor(1.0, dtype=dtype, device=device))
+    ctl = pdhg.RestartCtl(
+        fpe_init=torch.tensor(np.inf, dtype=dtype, device=device),
+        fpe_last=torch.tensor(np.inf, dtype=dtype, device=device),
+        fresh=torch.ones((), dtype=torch.bool, device=device),
+        total_k=torch.zeros((), dtype=torch.int32, device=device),
+        n_restarts=torch.zeros((), dtype=torch.int32, device=device))
+    return state, ctl
 
-    def ctl():
-        return pdhg.RestartCtl(
-            fpe_init=torch.tensor(np.inf, dtype=dtype, device=device),
-            fpe_last=torch.tensor(np.inf, dtype=dtype, device=device),
-            fresh=torch.ones((), dtype=torch.bool, device=device),
-            total_k=torch.zeros((), dtype=torch.int32, device=device),
-            n_restarts=torch.zeros((), dtype=torch.int32, device=device))
+
+def profile_blocks(problem, device, mode="halpern"):
+    """Wall and device time of one step of `problem` with the graphs on
+    (`solvers/pdlp/graph.py`): 10 restart windows of 40 Halpern steps,
+    or one average-mode block of 400 steps, each as replays of captured
+    graphs and then the metrics graph and its host read.  The same block
+    issued op by op gives the eager wall beside it.  The device time by
+    kernel comes from `torch.profiler` (CUPTI records the kernels a
+    graph replay launches; where it records none, the device numbers are
+    None); device time over wall is the busy share."""
+    dtype = problem.c.dtype
+    state, ctl = _start(problem, dtype, device)
+    if mode == "average":
+        state = state._replace(x_anchor=torch.zeros_like(state.x),
+                               y_anchor=torch.zeros_like(state.y))
     theta = torch.tensor(0.0, dtype=dtype, device=device)
-
-    def run():
-        if mode == "average":
-            sums = state._replace(x_anchor=torch.zeros_like(x),
-                                  y_anchor=torch.zeros_like(y))
-            out = pdhg.pdhg_block_avg(problem, sums, WINDOWS * INTERVAL)
-            pdhg.read_metric_pair(out[1], out[2])
-            return
-        out = pdhg.pdhg_block_windows(problem, state, ctl(), WINDOWS, 1.0,
-                                      INTERVAL, theta)
-        pdhg.read_metrics(out[2], out[1])
-
-    run()  # warm-up
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    run()
-    torch.cuda.synchronize()
     steps = WINDOWS * INTERVAL
-    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    result = {"steps": steps, "wall_ms_per_step": wall_ms}
+
+    def run(blocks):
+        if mode == "average":
+            out = blocks.block_avg(state, steps, None)
+            pdhg.read_metric_pair(out[1], out[2])
+        else:
+            out = blocks.windows(state, ctl, WINDOWS, 1.0, INTERVAL, theta,
+                                 None)
+            pdhg.read_metrics(out[2], out[1])
+
+    def wall_ms(blocks):
+        run(blocks)  # warm-up (and the captures)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(blocks)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / steps
+
+    runner = graph.GraphBlocks(problem, INTERVAL)
+    result = {"mode": mode, "steps": steps,
+              "wall_ms_per_step": wall_ms(runner),
+              "eager_wall_ms_per_step": wall_ms(
+                  graph.EagerBlocks(problem))}
+    before = graph.read_counts()
+    replays = graph.COUNTS["replays"]
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        run()
+        run(runner)
         torch.cuda.synchronize()
+    after = graph.read_counts()
+    runner.close()
     kernels = {}
     for ev in prof.key_averages():
         # device-side events only: a CPU op's self device time repeats
@@ -117,11 +142,15 @@ def _profile_windows(problem, dtype, device, mode="halpern"):
                                "device_ms_per_step":
                                ev.self_device_time_total / 1e3 / steps}
     device_ms = sum(k["device_ms_per_step"] for k in kernels.values())
-    launches = sum(k["calls"] for k in kernels.values())
+    wall = result["wall_ms_per_step"]
     result.update({
+        "replays_per_block": graph.COUNTS["replays"] - replays,
+        "launches_per_step": {k: (after[k] - before[k]) / steps
+                              for k in after if after[k] != before[k]},
         "device_ms_per_step": device_ms if kernels else None,
-        "device_busy_share": device_ms / wall_ms if kernels else None,
-        "kernels_per_step": launches / steps if kernels else None,
+        "device_busy_share": device_ms / wall if kernels else None,
+        "kernels_per_step": (sum(k["calls"] for k in kernels.values()) /
+                             steps if kernels else None),
         "top_kernels": dict(sorted(
             kernels.items(), key=lambda kv: -kv[1]["device_ms_per_step"])[:8]),
     })
@@ -206,8 +235,8 @@ def main(argv=None) -> int:
         "recover_s": recover_s, "rounds": rounds,
         "ms_per_iteration": pdhg_s * 1e3 / max(1, iters),
     }
-    report["windows"] = _profile_windows(
-        problem, dtype, device, "average" if solver == "pdlp" else "halpern")
+    report["windows"] = profile_blocks(
+        problem, device, "average" if solver == "pdlp" else "halpern")
     for key, val in report.items():
         if key != "windows":
             print(f"{key}: {val}", flush=True)
