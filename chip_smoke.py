@@ -193,13 +193,19 @@ Phases, each of which fails the run (non-zero exit) when it fails:
             against their plain chains (`ops/pdhg_step.py`) at block64k's
             (65,536) and synth50k's (50,176) widths, f32 and f64, Halpern
             and average mode, with and without a dual floor y_lo: equal
-            bit for bit, their cold times beside the byte bound; one
+            bit for bit, their cold times beside the byte bound
+            (`tools/step_bench.py`); the same
+            bit checks at widths off the vector grid (1, 3, 5, 127,
+            65,537) and a view offset by one element refused; each
+            kernel's registers and whether a global load follows its
+            first division in the SASS (`cuobjdump`: none may); one
             captured restart window (`solvers/pdlp/graph.py`) against the
             eager window with the kernels and against the plain chain, on
             block64k's scaled problem (the f32 cold round of phase 7): the
             state, restart control and metrics equal bit for bit after 4
-            windows; the device busy share, the wall and the launches per
-            step of block64k's windows, synth50k's and block64k's average
+            windows; the wall, the device ms by kernel (step kernels,
+            products, the rest), the busy share and the launches per step
+            of block64k's windows, synth50k's and block64k's average
             blocks with the graphs on (`tools/profile_block64k.py`).
 
 The PDLP phases (5-8, 11, 18) run every ramped block as replays of
@@ -281,8 +287,6 @@ KERNELS = {
                        "_halpern_step; :438 _avg_pdhg_step), no "
                        "pl.pallas_call"),
 }
-# PDHG widths of the step kernels' phase: block64k and synth50k padded
-STEP_WIDTHS = {"block64k": 65536, "synth50k": 50176}
 # the cold-round problem of phases 7 and 8, for phase 19
 FIRST_ROUND = {}
 
@@ -2218,112 +2222,6 @@ def mesh_phase(device, a, b, c, anchor, block64k_iters):
             "solve_pdhg": pdhg_runs, "dryrun": dry}
 
 
-def step_inputs(n, m, dtype, with_y_lo, device, seed):
-    """Inputs of the two step kernels at widths (n, m): seeded vectors
-    with infinite and finite bounds, a quarter equality rows, the step
-    size, primal weight and step count of a run."""
-    import numpy as np
-    import torch
-    rng = np.random.default_rng(seed)
-
-    def t(v, dt=dtype):
-        return torch.as_tensor(np.asarray(v), dtype=dt, device=device)
-    lo = np.where(rng.uniform(size=n) < 0.8, 0.0, -np.inf)
-    up = np.where(rng.uniform(size=n) < 0.6, rng.uniform(1, 5, n), np.inf)
-    is_eq = (rng.uniform(size=m) < 0.25).astype(np.float64)
-    return dict(
-        x=t(np.clip(rng.standard_normal(n), lo, up)),
-        c=t(rng.standard_normal(n)), aty=t(rng.standard_normal(n)),
-        lo=t(lo), up=t(up),
-        x_anchor=t(rng.standard_normal(n)), y=t(rng.standard_normal(m)),
-        b=t(rng.standard_normal(m)), ax_r=t(rng.standard_normal(m)),
-        is_eq=t(is_eq),
-        y_lo=t(-rng.uniform(0, 0.5, m)) if with_y_lo else None,
-        y_anchor=t(rng.standard_normal(m)), eta=t(0.0123), omega=t(1.7),
-        k=t(37, torch.int32))
-
-
-def same_bits(got, want) -> bool:
-    """Equal bit for bit (NaN payloads included)."""
-    import torch
-    ints = {torch.float32: torch.int32, torch.float64: torch.int64}
-
-    def bits(t):
-        return t.view(ints[t.dtype]) if t.dtype in ints else t
-    return len(got) == len(want) and all(
-        g.dtype == w.dtype and g.shape == w.shape and
-        torch.equal(bits(g), bits(w)) for g, w in zip(got, want))
-
-
-def step_kernel_records(device):
-    """The two step kernels against their plain chains, with times."""
-    import torch
-    from highs_tpu_torch.ops import pdhg_step
-    from highs_tpu_torch.tools.card import bound_ms, call_ms, time_ms
-
-    records = []
-    for path, width in STEP_WIDTHS.items():
-        for dtype in (torch.float32, torch.float64):
-            item = torch.tensor([], dtype=dtype).element_size()
-            for mode in pdhg_step.MODES:
-                for with_y_lo in (False, True):
-                    v = step_inputs(width, width, dtype, with_y_lo, device,
-                                    seed=len(records))
-                    gamma = 1.0 if mode == "average" else 0.9
-                    p_args = (v["x"], v["c"], v["aty"], v["lo"], v["up"],
-                              v["x_anchor"], v["eta"], v["omega"], v["k"],
-                              gamma, mode)
-                    d_args = (v["y"], v["b"], v["ax_r"], v["is_eq"],
-                              v["y_lo"], v["y_anchor"], v["eta"],
-                              v["omega"], v["k"], gamma, mode)
-                    cases = [("pdhg_dual_step", pdhg_step.dual_step,
-                              pdhg_step.dual_step_plain, d_args,
-                              (5 + with_y_lo + 2) * width * item +
-                              2 * item + 8)]
-                    if not with_y_lo:  # the primal half has no y_lo
-                        cases.insert(0, (
-                            "pdhg_primal_step", pdhg_step.primal_step,
-                            pdhg_step.primal_step_plain, p_args,
-                            9 * width * item + 2 * item + 4))
-                    for name, kernel, plain, args, nbytes in cases:
-                        before = pdhg_step.LAUNCHES[name]
-                        got = kernel(*args)
-                        sync(device)
-                        if device.type == "cuda" and \
-                                pdhg_step.LAUNCHES[name] != before + 1:
-                            raise RuntimeError(f"{name} did not launch its "
-                                               "kernel on a CUDA tensor")
-                        want = plain(*args)
-                        equal = same_bits(got, want)
-                        err = max((g.double() - w.double()).abs().nan_to_num(
-                            0.0).max().item() for g, w in zip(got, want)
-                            if g.is_floating_point())
-                        # a handful of operations an element: bytes bind
-                        b_ms, b_by = bound_ms(nbytes, 12.0 * width, dtype)
-                        rec = dict(
-                            name=name, path=path, width=width,
-                            dtype=dtype_name(dtype), mode=mode,
-                            y_lo=with_y_lo, equal_bits=equal,
-                            max_abs_err=err, ok=equal,
-                            ms=time_ms(kernel, device, *args),
-                            call_ms=call_ms(lambda: kernel(*args), device),
-                            plain_ms=time_ms(plain, device, *args),
-                            library_ms=None, bound_ms=b_ms, bound_by=b_by)
-                        log(f"graphs {name} {path} {rec['dtype']} {mode} "
-                            f"y_lo {with_y_lo}: equal bits {equal} "
-                            f"(max abs diff {err:.3e}) kernel_ms "
-                            f"{rec['ms']:.4f} (per call "
-                            f"{rec['call_ms']:.4f}) plain_ms "
-                            f"{rec['plain_ms']:.4f} bound_us "
-                            f"{b_ms * 1e3:.2f} ({b_by})")
-                        records.append(rec)
-    bad = [r for r in records if not r["ok"]]
-    if bad:
-        raise RuntimeError(f"step kernels differ from their plain chains: "
-                           f"{bad}")
-    return records
-
-
 def window_check(problem, device, n_windows=4):
     """One captured restart window replayed n_windows times against the
     eager windows with the kernels and with the plain chain, from the
@@ -2331,6 +2229,7 @@ def window_check(problem, device, n_windows=4):
     import math as _m
     import torch
     from highs_tpu_torch.solvers.pdlp import graph, pdhg
+    from highs_tpu_torch.tools.step_bench import same_bits
 
     dtype = problem.c.dtype
     n, m = problem.c.shape[0], problem.b.shape[0]
@@ -2380,10 +2279,24 @@ def window_check(problem, device, n_windows=4):
 
 
 def graphs_phase(device):
-    """Phase 19: the step kernels, a captured window, the busy share."""
-    from highs_tpu_torch.tools import profile_block64k
+    """Phase 19: the step kernels (bit for bit at the PDLP and odd
+    widths, timed at the PDLP widths, an offset view refused, their
+    registers and load order), a captured window, and the wall, device
+    ms by kernel and busy share of a step in the graphs."""
+    from highs_tpu_torch.tools import profile_block64k, step_bench
 
-    records = step_kernel_records(device)
+    records = step_bench.step_kernel_records(device)
+    odd = step_bench.step_kernel_records(device, step_bench.ODD_WIDTHS,
+                                         timed=False)
+    refused = step_bench.offset_view_refused(device)
+    sass = step_bench.kernel_sass()
+    for name, r in sass.items():
+        log(f"graphs SASS {name}: {r['registers']} registers, "
+            f"{r['loads']} global loads, {r['loads_after_division']} after "
+            f"the first division")
+    late = [name for name, r in sass.items() if r["loads_after_division"]]
+    if late:
+        raise RuntimeError(f"step kernels load after a division: {late}")
     window = window_check(FIRST_ROUND["block64k"], device)
     busy = {}
     for name, problem, mode in (
@@ -2392,15 +2305,19 @@ def graphs_phase(device):
             ("block64k_avg", FIRST_ROUND["block64k"], "average")):
         busy[name] = profile_block64k.profile_blocks(problem, device, mode)
         w = busy[name]
+        if w["by_kernel"] is None:
+            raise RuntimeError("the profiler recorded no kernel of the "
+                               "graphs")
         log(f"graphs: {name} {mode} blocks, graphs on: wall "
-            f"{w['wall_ms_per_step']:.4f} ms a step (op by op "
+            f"{w['wall_ms_per_step']:.5f} ms a step (op by op "
             f"{w['eager_wall_ms_per_step']:.4f}), device "
-            f"{w['device_ms_per_step']} ms a step, busy share "
-            f"{w['device_busy_share']}, kernels a step "
+            f"{w['device_ms_per_step']} ms a step {w['by_kernel']}, busy "
+            f"share {w['device_busy_share']}, kernels a step "
             f"{w['kernels_per_step']}, launches a step "
             f"{w['launches_per_step']}")
     FIRST_ROUND.clear()
-    return records, {"window": window, "busy": busy}
+    return records, {"window": window, "busy": busy, "odd_widths": odd,
+                     "offset_view": refused, "sass": sass}
 
 
 def headline(records, launches, extra=None):
@@ -2538,6 +2455,9 @@ def main() -> int:
                 r["mode"] == "halpern" and not r["y_lo"]]
         lines[name] = headline(head, bc_launches[name], {
             "path": "block64k", "pdlp_iterations": bc_iters,
+            "in_graph_ms_per_step": {
+                cell: w["by_kernel"][name]
+                for cell, w in graphs["busy"].items()},
             "paths": {"block64k": bc_launches[name],
                       "synth50k": oh_launches[name],
                       "block64k_avg": avg_launches[name],

@@ -48,6 +48,11 @@ def _paths(name: str):
     return src, BUILD_DIR / f"lib{name}-{digest}.so"
 
 
+def library_path(name: str) -> pathlib.Path:
+    """Where the build of `csrc/<name>.cu` lies."""
+    return _paths(name)[1]
+
+
 def build(names) -> None:
     """Compile `csrc/<name>.cu` for every name whose build is missing,
     all nvcc processes started together; raises if any of them fails."""
@@ -78,4 +83,4 @@ def build(names) -> None:
 def load_library(name: str) -> ctypes.CDLL:
     """Compile `csrc/<name>.cu` if its build is missing, then load it."""
     build([name])
-    return ctypes.CDLL(str(_paths(name)[1]))
+    return ctypes.CDLL(str(library_path(name)))

@@ -17,11 +17,18 @@ a CPU tensor.  The plain versions are the chain as PyTorch computes it;
 the kernels round every operation as they do and equal them bit for bit
 on the card.  `mode` is "halpern" (x_out = the blended iterate) or
 "average" (x_out = x_anchor + x_pd, the running sum).
+
+The kernels move every vector as 16-byte words, so each CUDA tensor must
+start on a 16-byte boundary (a view that starts inside its storage may
+not: the wrappers raise `ValueError`), and take their launch geometry
+from `launch_geometry`, a plain function of the length, the item size
+and the card's SM count.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -31,7 +38,46 @@ MODES = ("halpern", "average")
 # launches one adds one)
 LAUNCHES = {"pdhg_primal_step": 0, "pdhg_dual_step": 0}
 
+# threads a block at most (`kMaxThreads` in csrc/pdhg_step.cu)
+MAX_THREADS = 256
+
 _LIB = None
+
+
+class Geometry(NamedTuple):
+    """A launch of the step kernels: `grid` blocks of `threads`; thread t
+    (global index) handles the 16-byte vectors t + j * grid * threads for
+    j < per_thread that are below `vectors`, and threads 0 .. tail-1 the
+    elements vectors * width + t after the last vector."""
+    grid: int
+    threads: int
+    per_thread: int
+    vectors: int
+    tail: int
+
+
+def launch_geometry(n: int, itemsize: int, sms: int) -> Geometry:
+    """The launch for vectors of n items of `itemsize` bytes on a card of
+    `sms` SMs: the body as 16-byte vectors, one a thread while that fits
+    MAX_THREADS threads on each SM, else two, in blocks of a multiple of
+    32 threads sized so that one block on each SM covers it (one wave up
+    to 2 * MAX_THREADS * sms vectors, more blocks beyond); the remaining
+    n mod (16 / itemsize) items as the scalar tail."""
+    if itemsize not in (4, 8):
+        raise ValueError(f"item size {itemsize}: the kernels take 4 or 8")
+    if n < 0 or sms < 1:
+        raise ValueError(f"length {n} and {sms} SMs")
+    vectors, tail = divmod(n, 16 // itemsize)
+    per_thread = 1 if vectors <= MAX_THREADS * sms else 2
+    per_block = -(-vectors // (per_thread * sms))
+    threads = min(MAX_THREADS, max(32, 32 * -(-per_block // 32)))
+    grid = max(1, -(-vectors // (threads * per_thread)))
+    return Geometry(grid, threads, per_thread, vectors, tail)
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def halpern_weights(k: torch.Tensor, dtype: torch.dtype):
@@ -81,13 +127,14 @@ def _lib():
     if _LIB is None:
         from .cuda_build import load_library
         lib = load_library("pdhg_step")
-        ptr = ctypes.c_void_p
+        ptr, c_int = ctypes.c_void_p, ctypes.c_int
         for fn in (lib.pdhg_primal_step_f32, lib.pdhg_primal_step_f64,
                    lib.pdhg_dual_step_f32, lib.pdhg_dual_step_f64):
             fn.argtypes = ([ptr] * 9 + [ctypes.c_double, ctypes.c_double,
-                                        ctypes.c_int] + [ptr] * 3 +
-                           [ctypes.c_longlong, ptr])
-            fn.restype = ctypes.c_int
+                                        c_int] + [ptr] * 3 +
+                           [ctypes.c_longlong, c_int, c_int, c_int,
+                            ctypes.c_longlong, c_int, ptr])
+            fn.restype = c_int
         _LIB = lib
     return _LIB
 
@@ -126,7 +173,18 @@ def _check(vectors, scalars, k, mode):
             if not t.is_contiguous():
                 raise ValueError("the PDHG step kernels take contiguous "
                                  "tensors")
+        for v in vectors:
+            if v.data_ptr() % 16:
+                # the kernels move every vector as 16-byte words
+                raise ValueError("the PDHG step kernels take vectors that "
+                                 "start on a 16-byte boundary (a view that "
+                                 "starts inside its storage may not)")
     return device
+
+
+def _geometry(v: torch.Tensor) -> Geometry:
+    return launch_geometry(v.shape[0], v.element_size(),
+                           _sms(v.device.index))
 
 
 def _launched(name: str, rc: int):
@@ -153,7 +211,8 @@ def primal_step(x, c, aty, lo, up, x_anchor, eta, omega, k, gamma: float,
                 omega.data_ptr(), k.data_ptr(), float(gamma),
                 1.0 - float(gamma), int(mode == "halpern"),
                 x_pd.data_ptr(), x_r.data_ptr(), x_out.data_ptr(),
-                x.shape[0], torch.cuda.current_stream(device).cuda_stream)
+                x.shape[0], *_geometry(x),
+                torch.cuda.current_stream(device).cuda_stream)
     _launched("pdhg_primal_step", rc)
     return x_pd, x_r, x_out
 
@@ -179,7 +238,7 @@ def dual_step(y, b, ax_r, is_eq, y_lo: Optional[torch.Tensor], y_anchor,
                 y_anchor.data_ptr(), eta.data_ptr(), omega.data_ptr(),
                 k.data_ptr(), float(gamma), 1.0 - float(gamma),
                 int(mode == "halpern"), y_pd.data_ptr(), y_out.data_ptr(),
-                k_next.data_ptr(), y.shape[0],
+                k_next.data_ptr(), y.shape[0], *_geometry(y),
                 torch.cuda.current_stream(device).cuda_stream)
     _launched("pdhg_dual_step", rc)
     return y_pd, y_out, k_next

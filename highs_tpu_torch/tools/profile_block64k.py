@@ -22,7 +22,8 @@ average-mode block of 400 steps and its two metric sets) of the cold
 round's problem (`profile_blocks`) as replays of captured CUDA graphs,
 as `solve_pdhg` runs them on one card: once for the wall time of a step
 (and once op by op beside it), and once under `torch.profiler`, for the
-device time of a step by kernel; their ratio is the device's busy
+device time of a step by kernel (`by_kernel`: the primal and dual step
+kernels, the products and the rest); their ratio is the device's busy
 share.  Prints one JSON object as its last line and writes it to
 `--out`.  Needs a CUDA card.
 """
@@ -46,6 +47,23 @@ from .card import card_line
 
 WINDOWS = 10
 INTERVAL = 40
+# the kernels a step is split into, by a part of their name in the
+# profiler: the two step kernels of csrc/pdhg_step.cu and the products of
+# csrc/block_csr_spmv.cu and csrc/onehot_spmv.cu
+KERNEL_GROUPS = {"pdhg_primal_step": ("primal_kernel",),
+                 "pdhg_dual_step": ("dual_kernel",),
+                 "product": ("block_csr_spmv_kernel", "onehot_spmv_kernel")}
+
+
+def kernel_groups(kernels: dict, device_ms: float) -> dict:
+    """Device ms per step of each group of KERNEL_GROUPS, and of the
+    rest, from `kernels` (profiler name -> {"device_ms_per_step": ...})
+    and the step's device ms in all."""
+    out = {group: sum(k["device_ms_per_step"] for name, k in kernels.items()
+                      if any(part in name for part in parts))
+           for group, parts in KERNEL_GROUPS.items()}
+    out["rest"] = device_ms - sum(out.values())
+    return out
 
 
 def _timed(module, name, sink):
@@ -148,6 +166,7 @@ def profile_blocks(problem, device, mode="halpern"):
         "launches_per_step": {k: (after[k] - before[k]) / steps
                               for k in after if after[k] != before[k]},
         "device_ms_per_step": device_ms if kernels else None,
+        "by_kernel": kernel_groups(kernels, device_ms) if kernels else None,
         "device_busy_share": device_ms / wall if kernels else None,
         "kernels_per_step": (sum(k["calls"] for k in kernels.values()) /
                              steps if kernels else None),

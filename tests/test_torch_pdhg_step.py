@@ -9,9 +9,13 @@
   copies its outputs into the first call's, as a graph refreshes its
   static outputs) equal bit for bit to the plain loop, and the launch
   counters multiplied by the replays.
-- On a card: the kernels against the plain chains (bit for bit), and a
-  captured window against the eager one (the `cuda_device` fixture skips
-  these elsewhere).
+- `launch_geometry`: every element covered once by the vector body and
+  the scalar tail, in one wave at the PDLP widths; the wrappers refuse a
+  vector that does not start on a 16-byte boundary.
+- On a card: the kernels against the plain chains (bit for bit) at the
+  PDLP widths and off the vector grid, the offset view refused, and
+  captured windows against the eager ones (the `cuda_device` fixture
+  skips these elsewhere).
 """
 import shutil
 
@@ -37,6 +41,7 @@ from highs_tpu_torch.parallel.dryrun import dryrun_multichip
 from highs_tpu_torch.parallel.mesh import make_mesh
 from highs_tpu_torch.solvers.pdlp import batch, graph
 from highs_tpu_torch.solvers.pdlp import pdhg as tp
+from highs_tpu_torch.tools import step_bench, step_turns
 
 torch.set_num_threads(1)
 
@@ -51,30 +56,30 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _arrays(seed, infinite, with_y_lo, dtype=np.float64):
+def _arrays(seed, infinite, with_y_lo, dtype=np.float64, m=M, n=N):
     """A standard-form problem K x >= b (NEQ equality rows) with mixed
     bounds, as numpy arrays; infinite bounds as +-inf or as the huge
     finite values the PDLP wrapper puts in their place."""
     rng = np.random.default_rng(seed)
-    k = sp.random(M, N, density=0.1, random_state=rng, format="csr")
-    b = k @ rng.uniform(0.0, 1.0, N)
-    b[NEQ:] -= np.abs(rng.standard_normal(M - NEQ)) * 0.1
-    c = rng.uniform(-0.5, 1.0, N)
-    lo_fin = (rng.uniform(size=N) < 0.8).astype(np.float64)
-    up_fin = (rng.uniform(size=N) < 0.6).astype(np.float64)
+    k = sp.random(m, n, density=0.1, random_state=rng, format="csr")
+    b = k @ rng.uniform(0.0, 1.0, n)
+    b[NEQ:] -= np.abs(rng.standard_normal(m - NEQ)) * 0.1
+    c = rng.uniform(-0.5, 1.0, n)
+    lo_fin = (rng.uniform(size=n) < 0.8).astype(np.float64)
+    up_fin = (rng.uniform(size=n) < 0.6).astype(np.float64)
     big = np.inf if infinite else np.finfo(dtype).max / 4
     arrays = dict(
         b=b, c=c, lo=np.where(lo_fin > 0, 0.0, -big),
-        up=np.where(up_fin > 0, rng.uniform(1.0, 5.0, N), big),
-        is_eq=(np.arange(M) < NEQ).astype(np.float64),
+        up=np.where(up_fin > 0, rng.uniform(1.0, 5.0, n), big),
+        is_eq=(np.arange(m) < NEQ).astype(np.float64),
         lo_fin=lo_fin, up_fin=up_fin,
-        inv_row_scale=rng.uniform(0.5, 2.0, M),
-        inv_col_scale=rng.uniform(0.5, 2.0, N),
+        inv_row_scale=rng.uniform(0.5, 2.0, m),
+        inv_col_scale=rng.uniform(0.5, 2.0, n),
         norm_b=np.asarray(np.linalg.norm(b)),
         norm_c=np.asarray(np.linalg.norm(c)))
     if with_y_lo:
         arrays["y_lo"] = np.where(arrays["is_eq"] > 0, 0.0,
-                                  -rng.uniform(0.0, 0.5, M))
+                                  -rng.uniform(0.0, 0.5, m))
     return k, {name: v.astype(dtype) for name, v in arrays.items()}
 
 
@@ -99,10 +104,10 @@ def _state_arrays(lo, up, is_eq, rmv, k, seed=1, dtype=np.float64):
     is_eq = np.asarray(is_eq) > 0
 
     def xs():
-        return np.clip(rng.standard_normal(N), lo, up)
+        return np.clip(rng.standard_normal(lo.shape[0]), lo, up)
 
     def ys():
-        y = rng.standard_normal(M)
+        y = rng.standard_normal(is_eq.shape[0])
         return np.where(is_eq, y, np.abs(y))
     y = ys().astype(dtype)
     s = dict(x=xs(), y=y, x_pd=xs(), y_pd=ys(), x_anchor=xs(),
@@ -202,6 +207,93 @@ def test_wrappers_check_their_inputs():
                             "average")
 
 
+def _covered(g, n, itemsize):
+    """How often a launch of geometry g touches each index of range(n),
+    by the kernels' index arithmetic: thread t takes the 16-byte vectors
+    t + j * grid * threads (j < per_thread) below g.vectors, and threads
+    below g.tail the element g.vectors * width + t."""
+    width = 16 // itemsize
+    stride = g.grid * g.threads
+    t = np.arange(stride)
+    touched = [g.vectors * width + t[t < g.tail]]
+    for j in range(g.per_thread):
+        v = t + j * stride
+        v = v[v < g.vectors]
+        touched += [v * width + e for e in range(width)]
+    # an index at or past n lengthens the count, and fails the comparison
+    return np.bincount(np.concatenate(touched), minlength=n)
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("n", [1, 3, 4, 5, 127, 128, 50176, 65536, 65537])
+def test_launch_geometry_covers_each_element_once(n, itemsize):
+    sms = 132  # the H100's
+    g = pdhg_step.launch_geometry(n, itemsize, sms)
+    assert np.array_equal(_covered(g, n, itemsize), np.ones(n, np.int64))
+    assert g.grid <= sms  # one wave: at most one block an SM
+    assert g.threads % 32 == 0 and 32 <= g.threads <= pdhg_step.MAX_THREADS
+    assert g.per_thread in (1, 2)
+    assert g.tail < 16 // itemsize <= g.threads
+
+
+@pytest.mark.parametrize("n,itemsize,sms", [(2_000_003, 4, 132),
+                                            (1_000_001, 8, 132),
+                                            (65536, 4, 1), (50177, 8, 7)])
+def test_launch_geometry_beyond_one_wave(n, itemsize, sms):
+    """A body of more than two vectors a thread in blocks of MAX_THREADS
+    on every SM takes more blocks, each element still once."""
+    g = pdhg_step.launch_geometry(n, itemsize, sms)
+    assert np.array_equal(_covered(g, n, itemsize), np.ones(n, np.int64))
+    assert g.grid > sms and g.per_thread == 2
+    assert g.threads == pdhg_step.MAX_THREADS
+
+
+def test_launch_geometry_refuses_other_item_sizes():
+    with pytest.raises(ValueError, match="item size"):
+        pdhg_step.launch_geometry(64, 2, 132)
+
+
+def test_step_bench_records_on_the_cpu():
+    """`step_kernel_records` without times at widths off the vector grid:
+    on the CPU the wrappers take the plain chains, so every record is
+    equal, and the records cover both kernels in every variant."""
+    records = step_bench.step_kernel_records(
+        torch.device("cpu"), {"odd": 67, "grid": 64}, timed=False)
+    assert all(r["ok"] and r["equal_bits"] for r in records)
+    # per width, dtype and mode: primal once, dual with and without y_lo
+    assert len(records) == 2 * 2 * 2 * 3
+    assert {(r["name"], r["y_lo"]) for r in records} == {
+        ("pdhg_primal_step", False), ("pdhg_dual_step", False),
+        ("pdhg_dual_step", True)}
+
+
+def test_step_turns_summary_reads_both_trees():
+    """A run with the profile's kernel groups (`by_kernel`) and one from
+    a tree whose profile has only its top kernels give the same groups."""
+    kernels = {"primal_kernel<float>": {"device_ms_per_step": 0.002},
+               "dual_kernel<float>": {"device_ms_per_step": 0.0015},
+               "onehot_spmv_kernel": {"device_ms_per_step": 0.011}}
+    from highs_tpu_torch.tools.profile_block64k import kernel_groups
+    cell = dict(wall_ms_per_step=0.02, device_ms_per_step=0.019,
+                device_busy_share=0.95, top_kernels=kernels)
+    new = dict(cell, by_kernel=kernel_groups(kernels, 0.019))
+    rec = dict(name="pdhg_dual_step", path="synth50k", dtype="float32",
+               mode="halpern", y_lo=False, bound_ms=0.0004, ms=0.003,
+               call_ms=0.01, plain_ms=0.03)
+    out = step_turns.summary([
+        ("parent", {"cells": {"synth50k": cell}, "kernels": [rec]}),
+        ("change", {"cells": {"synth50k": new}, "kernels": [rec]})])
+    parent, change = (out["cells"]["synth50k"][t] for t in ("parent",
+                                                           "change"))
+    assert parent == change
+    assert parent["pdhg_primal_step"] == [0.002]
+    assert parent["product"] == [0.011]
+    assert parent["rest"] == [pytest.approx(0.019 - 0.0145)]
+    key = "pdhg_dual_step synth50k float32 halpern"
+    assert out["kernels"][key]["parent ms"] == [0.003]
+    assert out["kernels"][key]["change plain_ms"] == [0.03]
+
+
 class _OnCard(torch.Tensor):
     """A CPU tensor that reports a CUDA device: what a wrapper does with
     a CUDA tensor, on a machine without a card."""
@@ -222,6 +314,29 @@ def test_wrappers_raise_on_a_cuda_tensor_without_a_card():
         pdhg_step.primal_step(x, x, x, x, x, x, s, s, k, 1.0, "halpern")
     with pytest.raises(RuntimeError, match="nvcc"):
         pdhg_step.dual_step(x, x, x, x, None, x, s, s, k, 1.0, "average")
+    assert pdhg_step.LAUNCHES == before
+
+
+def test_wrappers_refuse_a_vector_off_16_bytes():
+    """On a card every vector must start on a 16-byte boundary; a view
+    offset by one element is refused before any library is loaded."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card")
+
+    def on_card(t):
+        return t.as_subclass(_OnCard)
+    x = on_card(torch.zeros(4, dtype=torch.float64))
+    off = on_card(torch.zeros(5, dtype=torch.float64)[1:])
+    s = on_card(torch.tensor(1.0, dtype=torch.float64))
+    k = on_card(torch.tensor(0, dtype=torch.int32))
+    before = dict(pdhg_step.LAUNCHES)
+    for args in ((off, x, x, x, x, x), (x, x, x, x, x, off)):
+        with pytest.raises(ValueError, match="16-byte"):
+            pdhg_step.primal_step(*args, s, s, k, 1.0, "halpern")
+    for y, y_lo in ((off, None), (x, off)):
+        with pytest.raises(ValueError, match="16-byte"):
+            pdhg_step.dual_step(y, x, x, x, y_lo, x, s, s, k, 1.0,
+                                "average")
     assert pdhg_step.LAUNCHES == before
 
 
@@ -506,6 +621,90 @@ def test_kernels_equal_plain_on_card(cuda_device, dtype, mode, with_y_lo):
         torch.cuda.synchronize()
         for g, w in zip(got, want):
             assert torch.equal(g, w)
+
+
+def _bits(t):
+    ints = {torch.float32: torch.int32, torch.float64: torch.int64}
+    return t.view(ints[t.dtype]) if t.dtype in ints else t
+
+
+@pytest.mark.parametrize("n", [1, 3, 5, 127, 65537])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_kernels_equal_plain_at_odd_widths_on_card(cuda_device, dtype, n):
+    """Widths off the 16-byte grid: the scalar tail and the vector body
+    together, bit for bit."""
+    rng = np.random.default_rng(n)
+
+    def t(v, dt=dtype):
+        return torch.as_tensor(np.asarray(v), dtype=dt, device=cuda_device)
+    lo = np.where(rng.uniform(size=n) < 0.8, 0.0, -np.inf)
+    up = np.where(rng.uniform(size=n) < 0.6, rng.uniform(1, 5, n), np.inf)
+    vec = rng.standard_normal
+    eta, omega, k = t(0.0123), t(1.7), t(37, torch.int32)
+    for mode in pdhg_step.MODES:
+        p_args = (t(np.clip(vec(n), lo, up)), t(vec(n)), t(vec(n)), t(lo),
+                  t(up), t(vec(n)), eta, omega, k, 0.9, mode)
+        got = pdhg_step.primal_step(*p_args)
+        want = pdhg_step.primal_step_plain(*p_args)
+        for y_lo in (None, t(-rng.uniform(0, 0.5, n))):
+            d_args = (t(vec(n)), t(vec(n)), t(vec(n)),
+                      t((rng.uniform(size=n) < 0.25).astype(np.float64)),
+                      y_lo, t(vec(n)), eta, omega, k, 0.9, mode)
+            got += pdhg_step.dual_step(*d_args)
+            want += pdhg_step.dual_step_plain(*d_args)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(_bits(g), _bits(w))
+
+
+def test_offset_view_refused_on_card(cuda_device):
+    x = torch.zeros(65, dtype=torch.float64, device=cuda_device)
+    s = torch.tensor(1.0, dtype=torch.float64, device=cuda_device)
+    k = torch.tensor(0, dtype=torch.int32, device=cuda_device)
+    a = x[:64]
+    before = dict(pdhg_step.LAUNCHES)
+    with pytest.raises(ValueError, match="16-byte"):
+        pdhg_step.primal_step(x[1:], a, a, a, a, a, s, s, k, 1.0, "halpern")
+    with pytest.raises(ValueError, match="16-byte"):
+        pdhg_step.dual_step(x[1:], a, a, a, None, a, s, s, k, 1.0,
+                            "halpern")
+    assert pdhg_step.LAUNCHES == before
+
+
+@pytest.mark.parametrize("mode", ["halpern", "average"])
+def test_graph_window_at_odd_widths_on_card(cuda_device, mode):
+    """One captured 40-step window (or average chunk) at widths off the
+    16-byte grid, the step kernels' scalar tails included, against the
+    eager steps bit for bit."""
+    k, arrays = _arrays(13, False, True, m=47, n=83)
+    kd = k.toarray()
+    prob = pdhg_problem_from_numpy(dict(
+        arrays, k_op=DenseMatrix(torch.as_tensor(kd, device=cuda_device))),
+        device=cuda_device)
+    state = pdhg_state_from_numpy(_state_arrays(
+        arrays["lo"], arrays["up"], arrays["is_eq"], lambda y: kd.T @ y, 0,
+        14), device=cuda_device)
+    runner = graph.GraphBlocks(prob, 40)
+    if mode == "halpern":
+        ctl = restart_ctl_from_numpy(dict(
+            fpe_init=np.asarray(np.inf), fpe_last=np.asarray(np.inf),
+            fresh=np.asarray(True), total_k=np.asarray(0, np.int32),
+            n_restarts=np.asarray(0, np.int32)), device=cuda_device)
+        theta = torch.tensor(0.5, dtype=torch.float64, device=cuda_device)
+        got = runner.windows(state, ctl, 1, 1.0, 40, theta, None)
+        want = tp.pdhg_block_windows(prob, state, ctl, 1, 1.0, 40, theta)
+    else:
+        got = runner.block_avg(state, 40, None)
+        want = tp.pdhg_block_avg(prob, state, 40, None)
+    torch.cuda.synchronize()
+    flat = [t for part in got for t in (part if isinstance(part, tuple)
+                                        else (part,))]
+    flat_want = [t for part in want for t in (part if isinstance(
+        part, tuple) else (part,))]
+    assert len(flat) == len(flat_want)
+    for g, w in zip(flat, flat_want):
+        assert torch.equal(_bits(g), _bits(w))
+    runner.close()
 
 
 def test_graph_window_equals_eager_on_card(cuda_device):

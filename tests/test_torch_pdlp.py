@@ -248,3 +248,34 @@ def test_facade_clocks_count_pdhg_rounds_and_restarts(solver):
     assert timer.num_calls("pdlp_round") == 1  # f64: no refinement
     assert 0.0 < timer.read("pdlp_round") <= timer.read("solve")
     assert timer.num_calls("pdlp_restart") == info.restarts
+
+
+@pytest.mark.parametrize("fmt,dtype", [("blockcsr", "float32"),
+                                       ("ell", "float64")])
+def test_pdlp_problem_is_the_first_rounds_problem(monkeypatch, fmt, dtype):
+    # `pdlp_problem` builds the problem that `solve_lp_pdlp` hands to its
+    # first PDHG round: every vector and the operator's product equal
+    from highs_tpu_torch.solvers.pdlp import wrapper
+    d = _block_lp() if fmt == "blockcsr" else _sparse_lp()
+    opts = HighsOptions()
+    opts.tpu_matrix_format = fmt
+    opts.tpu_dtype = dtype
+    opts.pdlp_iteration_limit = 100
+    rounds = []
+    inner = wrapper.solve_pdhg
+
+    def keep(problem, *args, **kwargs):
+        rounds.append(problem)
+        return inner(problem, *args, **kwargs)
+    monkeypatch.setattr(wrapper, "solve_pdhg", keep)
+    solve_lp_pdlp(lp_from_numpy(d), opts, device="cpu")
+    s = wrapper.pdlp_problem(lp_from_numpy(d), opts, device="cpu")
+    want = rounds[0]
+    assert s.dtype == getattr(torch, dtype)
+    assert (s.n_pad, s.m_pad) == (want.c.shape[0], want.b.shape[0])
+    for name, got in s.problem._asdict().items():
+        if isinstance(got, torch.Tensor):
+            assert torch.equal(got, getattr(want, name)), name
+    x = torch.as_tensor(np.random.default_rng(3).standard_normal(s.n_pad),
+                        dtype=s.dtype)
+    assert torch.equal(s.problem.k_op.mv(x), want.k_op.mv(x))
