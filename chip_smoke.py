@@ -76,14 +76,27 @@ Phases, each of which fails the run (non-zero exit) when it fails:
             upstream HiGHS's, and at least two block-CSR launches per PDLP
             iteration; it prints the iterations, restarts, seconds, wall
             time per step and launches;
-12. batch    `solve_lp_batch` on 16 synth LPs (`gen_synth_lp(m, m, seed=s)`,
-            s = 0..15, m = 1,536 + 32 s: all pad to 2,048 x 2,048) with the
-            default options (f64 on the card): per instance kOptimal, the
-            independent KKT check and the objective within 1e-6 of scipy's
-            HiGHS (`tools/lp_anchors.py`, stored in `tools/lp_anchors.json`);
-            it prints each instance's iterations, blocks and seconds, and
-            the wall time per block against the byte floor of reading the
-            stacked dense K twice a step;
+12. batch    the batch on the card: the two step kernels' batched
+            launches under `torch.func.vmap` (`tools/step_bench.py`
+            `batched_step_records`: 1, 3 and 16 instances of 128 and
+            2,048, f32 and f64, both modes, with and without y_lo, every
+            third lane frozen) against the vmapped plain chains bit for
+            bit, one launch a vmapped call, timed at 16 x 2,048; the
+            batch's runner (two captured graphs) against its windows op
+            by op, bit for bit across a freeze; the busy share and
+            device ms of its blocks (`profile_batch_blocks`); then
+            `solve_lp_batch` on 16 synth LPs (`gen_synth_lp(m, m,
+            seed=s)`, s = 0..15, m = 1,536 + 32 s: all pad to 2,048 x
+            2,048) with the default options (f64 on the card): per
+            instance kOptimal, the independent KKT check, the objective
+            within 1e-6 of scipy's HiGHS (`tools/lp_anchors.py`, stored
+            in `tools/lp_anchors.json`) and the parent tree's iterations
+            (`PARENT_ITERATIONS["batch"]`), one launch of each step
+            kernel a step and every block replayed; it prints each
+            instance's iterations, blocks and seconds, the ms a step
+            after the first block against the byte floor of reading the
+            stacked dense K twice a step, the busy share and the launches
+            a step;
 13. simplex  the synth LP 1,500 x 1,500 through `Highs().run()` with the
             default options, which send it to the native simplex on the
             host: kOptimal, a valid basis, pivots counted, the KKT check and
@@ -208,7 +221,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
             of block64k's windows, synth50k's and block64k's average
             blocks with the graphs on (`tools/profile_block64k.py`).
 
-The PDLP phases (5-8, 11, 18) run every ramped block as replays of
+The PDLP phases (5-8, 11, 12, 18) run every ramped block as replays of
 captured CUDA graphs (one restart window, or one chunk of steps, and the
 metrics), each minor step as the two step kernels and the two products;
 the launch counters are kept true across replays.  Phases 7, 8, 11 and
@@ -248,7 +261,12 @@ SOURCES = ["block_csr_spmv", "onehot_spmv", "gather_probe", "pdhg_step"]
 # and graphs (its chip_smoke.py on an H100): the graphs replay the same
 # arithmetic, so the counts must not move
 PARENT_ITERATIONS = {"block64k": 56160, "synth50k": 48480,
-                     "block64k_avg": 94560, "mesh_block64k": 56160}
+                     "block64k_avg": 94560, "mesh_block64k": 56160,
+                     # each batch instance's, on the tree before the
+                     # batch's graphs (`tools/batch_turns.py` on an H100)
+                     "batch": [12640, 22880, 15200, 33120, 15200, 15200,
+                               20320, 20320, 15200, 10080, 12640, 33120,
+                               22880, 20320, 17760, 7520]}
 # upstream HiGHS's hipdlp on synth50k: optimal at 6704.2920770 in
 # 47,080 iterations (bench.py:215-220, BENCH_DETAILS.json)
 SYNTH50K_OBJECTIVE = 6704.2920770
@@ -911,14 +929,76 @@ def valid_basis(h, lp) -> bool:
                 len(basis.row_status) == lp.num_row and basic == lp.num_row)
 
 
+def batch_window_check(start, device, n_windows=2):
+    """The batch's runner (`batch.batch_runner`: replayed graphs on a
+    card) against its windows op by op (`EagerBlocks` with the vmapped
+    window and metrics), from `start`: two blocks of n_windows windows
+    with every third instance frozen between them, as `solve_lp_batch`
+    freezes a finished one; state, restart control and metrics equal
+    bit for bit after each block, and each vmapped step one launch of
+    each step kernel."""
+    import torch
+    from highs_tpu_torch.solvers.pdlp import batch, graph
+    from highs_tpu_torch.tools.step_bench import same_bits
+
+    problem = start.problem
+    b = problem.c.shape[0]
+    frozen = torch.zeros(b, dtype=torch.bool, device=device)
+    frozen[1::3] = True
+    theta = torch.zeros((), dtype=problem.c.dtype, device=device)
+
+    def two_blocks(runner):
+        state, ctl, out = start.state, start.ctl, []
+        for block in range(2):
+            state, ctl, metrics = runner.windows(state, ctl, n_windows, 1.0,
+                                                 40, theta, None)
+            out += [t.clone() for part in (state, ctl, metrics)
+                    for t in part]
+            state = batch.freeze_instances(state, frozen)
+        return out
+    reset_launches()
+    runner = batch.batch_runner(problem, 40)
+    got = two_blocks(runner)
+    runner.close()
+    sync(device)
+    launches = read_launches()
+    graphs = read_graph_counts()
+    want = two_blocks(graph.EagerBlocks(problem, batch.batched_window,
+                                        batch.batched_metrics))
+    sync(device)
+    out = dict(windows=2 * n_windows, frozen=int(frozen.sum()),
+               graph_equals_eager=same_bits(got, want),
+               launches={k: launches[k] for k in ("pdhg_primal_step",
+                                                  "pdhg_dual_step")},
+               graphs=graphs)
+    log(f"batch: {2 * n_windows} captured vmapped windows of {b} instances "
+        f"({out['frozen']} frozen after the first block) equal to the "
+        f"windows op by op: {out['graph_equals_eager']}; launches "
+        f"{out['launches']} for {2 * n_windows * 40} steps; graphs {graphs}")
+    steps = 2 * n_windows * 40
+    if not out["graph_equals_eager"]:
+        raise RuntimeError(f"captured batch window differs: {out}")
+    if device.type == "cuda" and (
+            set(out["launches"].values()) != {steps} or
+            graphs.get("captures") != 2):
+        raise RuntimeError(f"the captured batch window is not one batched "
+                           f"launch a step in two graphs: {out}")
+    return out
+
+
 def batch_phase(device):
-    """16 synth LPs through one vmapped batch on the card."""
+    """16 synth LPs through one vmapped batch on the card: the batched
+    step kernels against the vmapped plain chains, a captured batch
+    window against the eager one, the busy share of its blocks, then
+    `solve_lp_batch`."""
     import numpy as np
     from highs_tpu_torch.options import HighsOptions
-    from highs_tpu_torch.solvers.pdlp.batch import solve_lp_batch
+    from highs_tpu_torch.solvers.pdlp.batch import (prepare_batch,
+                                                    solve_lp_batch)
     from highs_tpu_torch.solvers.pdlp.wrapper import _bucket
-    from highs_tpu_torch.tools import lp_anchors
-    from highs_tpu_torch.tools.card import HBM_BYTES_PER_S
+    from highs_tpu_torch.tools import lp_anchors, profile_block64k, \
+        step_bench
+    from highs_tpu_torch.tools.card import HBM_BYTES_PER_S, card_line
     from highs_tpu_torch.utils.gen_synth_lp import UPPER, gen_synth_lp, \
         synth_lp
 
@@ -932,23 +1012,57 @@ def batch_phase(device):
     log(f"batch: {len(lps)} synth LPs of {rows[0]}..{rows[-1]} rows, padded "
         f"to {m_pad} x {n_pad}; stacked dense K {k_bytes / 1e6:.1f} MB (f64), "
         f"read twice a step: byte floor {floor_ms:.4f} ms a step")
+
+    step_records = step_bench.batched_step_records(device)
+    log("batch: the batched launches run the kernels whose SASS phase 19 "
+        "reads (the same template instances, b = 1 or more)")
+    start = prepare_batch(lps, HighsOptions(), device)
+    window = batch_window_check(start, device)
+    busy = profile_block64k.profile_batch_blocks(start, device)
+    del start
+    if busy["by_kernel"] is None:
+        raise RuntimeError("the profiler recorded no kernel of the batch's "
+                           "graphs")
+    log(f"batch: blocks with the graphs on: wall "
+        f"{busy['wall_ms_per_step']:.5f} ms a step (op by op "
+        f"{busy['eager_wall_ms_per_step']:.4f}), device "
+        f"{busy['device_ms_per_step']} ms a step {busy['by_kernel']}, busy "
+        f"share {busy['device_busy_share']}, kernels a step "
+        f"{busy['kernels_per_step']}, launches a step "
+        f"{busy['launches_per_step']}")
+
     blocks = []
     t0 = time.perf_counter()
 
     def on_block(msg):
         sync(device)
         blocks.append((time.perf_counter() - t0, int(msg.split()[2][:-1])))
+    reset_launches()
     results = solve_lp_batch(lps, HighsOptions(), log=on_block,
                              device=device)
     sync(device)
     seconds = time.perf_counter() - t0
+    launches = read_launches()
+    graphs = read_graph_counts()
     loop_s = blocks[-1][0] - blocks[0][0]
     loop_steps = blocks[-1][1] - blocks[0][1]
-    log(f"batch: {len(blocks)} blocks, {blocks[-1][1]} steps, {seconds:.3f} "
+    steps = blocks[-1][1]
+    per_step = {k: v / steps for k, v in launches.items() if v}
+    ms_per_step = 1e3 * loop_s / max(loop_steps, 1)
+    log(f"batch: {len(blocks)} blocks, {steps} steps, {seconds:.3f} "
         f"s (setup to the first block's end {blocks[0][0]:.3f} s); after "
         f"the first block {1e3 * loop_s / max(len(blocks) - 1, 1):.3f} ms a "
-        f"block, {1e3 * loop_s / max(loop_steps, 1):.4f} ms a step against "
-        f"the byte floor of {floor_ms:.4f}")
+        f"block, {ms_per_step:.4f} ms a step against the byte floor of "
+        f"{floor_ms:.4f}; busy share {busy['device_busy_share']}; launches "
+        f"a step {per_step}; graphs {graphs}; card {card_line()}")
+    if device.type == "cuda" and (
+            launches["pdhg_primal_step"] != steps or
+            launches["pdhg_dual_step"] != steps or
+            graphs.get("metrics") != len(blocks)):
+        raise RuntimeError(f"batch: {launches} launches and graphs {graphs} "
+                           f"for {steps} steps in {len(blocks)} blocks (one "
+                           f"batched launch of each step kernel a step, "
+                           f"every block replayed)")
     recs = []
     for i, ((st, sol, info), m, s) in enumerate(zip(results, rows, seeds)):
         a, b, c = gen_synth_lp(m, m, seed=s)
@@ -969,10 +1083,16 @@ def batch_phase(device):
         if st != st.kOptimal or not rec["kkt"] <= KKT_TOL or \
                 not rel_obj <= 1e-6:
             raise RuntimeError(f"batch instance {i}: {rec}")
+    iters = [r["iterations"] for r in recs]
+    if iters != PARENT_ITERATIONS["batch"]:
+        raise RuntimeError(f"batch: iterations {iters}, the parent tree "
+                           f"took {PARENT_ITERATIONS['batch']}")
     return dict(instances=recs, seconds=seconds, blocks=len(blocks),
-                steps=blocks[-1][1], padded=[m_pad, n_pad],
-                byte_floor_ms_per_step=floor_ms,
-                ms_per_step=1e3 * loop_s / max(loop_steps, 1))
+                steps=steps, padded=[m_pad, n_pad],
+                byte_floor_ms_per_step=floor_ms, ms_per_step=ms_per_step,
+                launches=launches, launches_per_step=per_step,
+                graphs=graphs, window=window, busy=busy,
+                step_records=step_records)
 
 
 def simplex_phase(device):
@@ -2222,6 +2342,24 @@ def mesh_phase(device, a, b, c, anchor, block64k_iters):
             "solve_pdhg": pdhg_runs, "dryrun": dry}
 
 
+class plain_chains:
+    """The steps' plain chains in place of the step operators, for a
+    comparison run: `pdhg.py` calls `ops/pdhg_step.py` `primal_step` and
+    `dual_step` by their module's names."""
+
+    def __enter__(self):
+        from highs_tpu_torch.ops import pdhg_step
+        self.kept = pdhg_step.primal_step, pdhg_step.dual_step
+        pdhg_step.primal_step = pdhg_step.primal_step_plain
+        pdhg_step.dual_step = pdhg_step.dual_step_plain
+        return self
+
+    def __exit__(self, *exc):
+        from highs_tpu_torch.ops import pdhg_step
+        pdhg_step.primal_step, pdhg_step.dual_step = self.kept
+        return False
+
+
 def window_check(problem, device, n_windows=4):
     """One captured restart window replayed n_windows times against the
     eager windows with the kernels and with the plain chain, from the
@@ -2260,8 +2398,9 @@ def window_check(problem, device, n_windows=4):
     runner.close()
     eager = pdhg.pdhg_block_windows(problem, state, ctl(), n_windows, 1.0,
                                     40, theta)
-    plain = pdhg.pdhg_block_windows(problem, state, ctl(), n_windows, 1.0,
-                                    40, theta, plain=True)
+    with plain_chains():
+        plain = pdhg.pdhg_block_windows(problem, state, ctl(), n_windows,
+                                        1.0, 40, theta)
     sync(device)
     flat = [t for part in got for t in part]
     out = dict(
@@ -2461,9 +2600,12 @@ def main() -> int:
             "paths": {"block64k": bc_launches[name],
                       "synth50k": oh_launches[name],
                       "block64k_avg": avg_launches[name],
-                      "mesh_block64k": mesh["block64k"]["launches_" + name]},
+                      "mesh_block64k": mesh["block64k"]["launches_" + name],
+                      "batch": batch["launches"][name]},
             "library": None,
-            "all_variants": [r for r in step_records if r["name"] == name]})
+            "all_variants": [r for r in step_records if r["name"] == name],
+            "batch_variants": [r for r in batch["step_records"]
+                               if r["name"] == name and "ms" in r]})
     lines["gather_probe"]["variants"] = probe_head
     summary = {"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0],

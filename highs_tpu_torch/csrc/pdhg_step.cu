@@ -70,6 +70,15 @@
 // every step slower, since the products ahead of the step kernels signal
 // nothing early (PERF.md §6).
 //
+// A batch.  The same kernels take b instances at once (the batched LP
+// solve runs every instance's step under torch.func.vmap): the vectors
+// are (b, n) with the row stride `stride`, eta, omega and k are (b,)
+// arrays, and blockIdx.y is the instance.  Each instance is covered by
+// the same grid of blocks, so a block never spans two instances and reads
+// its instance's scalars; the single-instance launch is the case b = 1.
+// A row stride of a whole number of 16-byte words keeps every instance's
+// first word on the 16-byte grid (the entry point checks it for b > 1).
+//
 // Plain C interface for ctypes: each entry point checks the geometry and
 // the alignment, launches on the given stream, allocates nothing and
 // returns the launch's error code.
@@ -196,9 +205,10 @@ __device__ __forceinline__ T dual_element(T yi, T bi, T axi, T eqi, T ylo,
   return pd;
 }
 
-// Each thread owns kPer vectors (indices t, t + stride, ... with t its
-// global index and stride the grid's thread count) and, on threads
-// 0 .. tail-1, one element of the scalar tail after the last vector.
+// Each thread owns kPer vectors of instance blockIdx.y (indices t,
+// t + stride, ... with t its index in the row of blocks and stride that
+// row's thread count) and, on threads 0 .. tail-1, one element of the
+// scalar tail after the last vector.
 template <typename T, int kPer, bool kHalpern>
 __global__ void __launch_bounds__(kMaxThreads)
 primal_kernel(const T* __restrict__ x, const T* __restrict__ c,
@@ -207,13 +217,19 @@ primal_kernel(const T* __restrict__ x, const T* __restrict__ c,
               const T* __restrict__ eta, const T* __restrict__ omega,
               const int* __restrict__ k, T gamma, T gamma_c,
               T* __restrict__ x_pd, T* __restrict__ x_r,
-              T* __restrict__ x_out, long long vectors, int tail) {
+              T* __restrict__ x_out, long long vectors, int tail,
+              long long row) {
   constexpr int W = Vec<T>::kWidth;
   const long long t = static_cast<long long>(blockIdx.x) * blockDim.x +
                       threadIdx.x;
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   const bool has_tail = t < tail;
   const long long at = vectors * W + t;  // its tail element
+  // this block's instance: its row of every vector, its scalars
+  const long long base = static_cast<long long>(blockIdx.y) * row;
+  x += base, c += base, aty += base, lo += base, up += base;
+  x_anchor += base, x_pd += base, x_r += base, x_out += base;
+  eta += blockIdx.y, omega += blockIdx.y, k += blockIdx.y;
   Vec<T> xv[kPer], cv[kPer], av[kPer], lov[kPer], upv[kPer], ancv[kPer];
   T xs = T(0), cs = T(0), as = T(0), los = T(0), ups = T(0), ancs = T(0);
 
@@ -277,13 +293,20 @@ dual_kernel(const T* __restrict__ y, const T* __restrict__ b,
             const T* __restrict__ eta, const T* __restrict__ omega,
             const int* __restrict__ k, T gamma, T gamma_c,
             T* __restrict__ y_pd, T* __restrict__ y_out,
-            int* __restrict__ k_next, long long vectors, int tail) {
+            int* __restrict__ k_next, long long vectors, int tail,
+            long long row) {
   constexpr int W = Vec<T>::kWidth;
   const long long t = static_cast<long long>(blockIdx.x) * blockDim.x +
                       threadIdx.x;
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   const bool has_tail = t < tail;
   const long long at = vectors * W + t;
+  const long long base = static_cast<long long>(blockIdx.y) * row;
+  y += base, b += base, ax_r += base, is_eq += base, y_anchor += base;
+  if (kYLo) y_lo += base;
+  y_pd += base, y_out += base;
+  eta += blockIdx.y, omega += blockIdx.y, k += blockIdx.y;
+  k_next += blockIdx.y;
   Vec<T> yv[kPer], bv[kPer], axv[kPer], eqv[kPer], lov[kPer], ancv[kPer];
   T ys = T(0), bs = T(0), axs = T(0), eqs = T(0), ylos = T(0), ancs = T(0);
 
@@ -313,7 +336,7 @@ dual_kernel(const T* __restrict__ y, const T* __restrict__ b,
   const T sigma = mul(eta_v, omega_v);
   T w = T(0), wc = T(0);
   if (kHalpern) halpern_weights(kk, &w, &wc);
-  if (t == 0) *k_next = kk + 1;
+  if (t == 0) *k_next = kk + 1;  // one thread of the instance
 
 #pragma unroll
   for (int j = 0; j < kPer; ++j) {
@@ -341,10 +364,14 @@ dual_kernel(const T* __restrict__ y, const T* __restrict__ b,
 }
 
 // The launch geometry of ops/pdhg_step.py `launch_geometry`, checked:
-// every element covered, 16-byte aligned vectors.
+// every element of each of the `batch` instances covered, 16-byte aligned
+// vectors, and for a batch a row stride of whole 16-byte words, so that
+// no word spans two instances.
 struct Geometry {
+  int batch;
+  long long row;  // elements from one instance's row to the next
   int grid, threads, per_thread, tail;
-  long long vectors;
+  long long vectors;  // 16-byte words of one instance
 };
 
 template <typename T>
@@ -357,6 +384,9 @@ bool valid(const Geometry& g, long long n,
       g.vectors * W + g.tail != n ||
       static_cast<long long>(g.grid) * g.threads * g.per_thread < g.vectors)
     return false;
+  if (g.batch < 1 || g.batch > 65535 || g.row < n ||
+      (g.batch > 1 && g.row % W != 0))
+    return false;
   for (const void* p : ptrs)
     if (reinterpret_cast<unsigned long long>(p) % 16 != 0) return false;
   return true;
@@ -364,7 +394,8 @@ bool valid(const Geometry& g, long long n,
 
 template <typename Kernel, typename... Args>
 int launch(Kernel kernel, const Geometry& g, void* stream, Args... args) {
-  kernel<<<g.grid, g.threads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const dim3 blocks(g.grid, g.batch);
+  kernel<<<blocks, g.threads, 0, static_cast<cudaStream_t>(stream)>>>(
       args...);
   return static_cast<int>(cudaGetLastError());
 }
@@ -386,7 +417,7 @@ int primal(const void* x, const void* c, const void* aty, const void* lo,
                   static_cast<const int*>(k), static_cast<T>(gamma),
                   static_cast<T>(gamma_c), static_cast<T*>(x_pd),
                   static_cast<T*>(x_r), static_cast<T*>(x_out), g.vectors,
-                  g.tail);
+                  g.tail, g.row);
   };
   if (g.per_thread == 1)
     return halpern ? go(primal_kernel<T, 1, true>)
@@ -404,7 +435,7 @@ int dual_per(const Geometry& g, void* stream, bool halpern, bool has_lo,
   auto go = [&](auto kernel) {
     return launch(kernel, g, stream, y, b, ax_r, is_eq, y_lo, y_anchor, eta,
                   omega, k, gamma, gamma_c, y_pd, y_out, k_next, g.vectors,
-                  g.tail);
+                  g.tail, g.row);
   };
   if (halpern)
     return has_lo ? go(dual_kernel<T, kPer, true, true>)
@@ -440,24 +471,28 @@ extern "C" int pdhg_primal_step_f32(
     const void* x, const void* c, const void* aty, const void* lo,
     const void* up, const void* x_anchor, const void* eta,
     const void* omega, const void* k, double gamma, double gamma_c,
-    int halpern, void* x_pd, void* x_r, void* x_out, long long n, int grid,
-    int threads, int per_thread, long long vectors, int tail,
-    void* stream) {
+    int halpern, void* x_pd, void* x_r, void* x_out, long long n,
+    int batch, long long row, int grid, int threads, int per_thread,
+    long long vectors, int tail, void* stream) {
   return primal<float>(x, c, aty, lo, up, x_anchor, eta, omega, k, gamma,
                        gamma_c, halpern, x_pd, x_r, x_out, n,
-                       {grid, threads, per_thread, tail, vectors}, stream);
+                       {batch, row, grid, threads, per_thread, tail,
+                        vectors},
+                       stream);
 }
 
 extern "C" int pdhg_primal_step_f64(
     const void* x, const void* c, const void* aty, const void* lo,
     const void* up, const void* x_anchor, const void* eta,
     const void* omega, const void* k, double gamma, double gamma_c,
-    int halpern, void* x_pd, void* x_r, void* x_out, long long n, int grid,
-    int threads, int per_thread, long long vectors, int tail,
-    void* stream) {
+    int halpern, void* x_pd, void* x_r, void* x_out, long long n,
+    int batch, long long row, int grid, int threads, int per_thread,
+    long long vectors, int tail, void* stream) {
   return primal<double>(x, c, aty, lo, up, x_anchor, eta, omega, k, gamma,
                         gamma_c, halpern, x_pd, x_r, x_out, n,
-                        {grid, threads, per_thread, tail, vectors}, stream);
+                        {batch, row, grid, threads, per_thread, tail,
+                        vectors},
+                       stream);
 }
 
 extern "C" int pdhg_dual_step_f32(
@@ -465,11 +500,12 @@ extern "C" int pdhg_dual_step_f32(
     const void* y_lo, const void* y_anchor, const void* eta,
     const void* omega, const void* k, double gamma, double gamma_c,
     int halpern, void* y_pd, void* y_out, void* k_next, long long m,
-    int grid, int threads, int per_thread, long long vectors, int tail,
-    void* stream) {
+    int batch, long long row, int grid, int threads, int per_thread,
+    long long vectors, int tail, void* stream) {
   return dual<float>(y, b, ax_r, is_eq, y_lo, y_anchor, eta, omega, k,
                      gamma, gamma_c, halpern, y_pd, y_out, k_next, m,
-                     {grid, threads, per_thread, tail, vectors}, stream);
+                     {batch, row, grid, threads, per_thread, tail, vectors},
+                     stream);
 }
 
 extern "C" int pdhg_dual_step_f64(
@@ -477,9 +513,10 @@ extern "C" int pdhg_dual_step_f64(
     const void* y_lo, const void* y_anchor, const void* eta,
     const void* omega, const void* k, double gamma, double gamma_c,
     int halpern, void* y_pd, void* y_out, void* k_next, long long m,
-    int grid, int threads, int per_thread, long long vectors, int tail,
-    void* stream) {
+    int batch, long long row, int grid, int threads, int per_thread,
+    long long vectors, int tail, void* stream) {
   return dual<double>(y, b, ax_r, is_eq, y_lo, y_anchor, eta, omega, k,
                       gamma, gamma_c, halpern, y_pd, y_out, k_next, m,
-                      {grid, threads, per_thread, tail, vectors}, stream);
+                      {batch, row, grid, threads, per_thread, tail, vectors},
+                     stream);
 }

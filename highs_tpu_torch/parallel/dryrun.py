@@ -164,9 +164,10 @@ def dryrun_multichip(n_devices: int, device=None, devices=None,
                                         dtype=dtype, device=home)
 
     def step(k_op_of, blocks, vecs, st):
-        # vmapped: the plain chains, a ctypes kernel has no vmap rule
+        # vmapped: each half of a step one batched launch of its kernel
+        # (the step operators' vmap rule)
         prob = PdhgProblem(k_op=k_op_of(blocks), **vecs)
-        return pdhg_block(prob, st, 4, 1.0, plain=True)
+        return pdhg_block(prob, st, 4, 1.0)
 
     def vmapped(k_op_of, blocks, vecs, st):
         return torch.func.vmap(

@@ -8,16 +8,25 @@ single-instance 40-step restart windows under `torch.func.vmap`.  vmap,
 as `jax.vmap` in the JAX package, gives every instance its own
 reductions (norms, dot products, the restart check), so no instance can
 leak into another's scalars, and the single-instance code the Halpern
-path runs stays as it is.  The host loop keeps per-instance termination
-state; finished instances are frozen by zeroing their step size, and
-each reports the iterate (and restart count) its convergence check
-passed, where the JAX package reports the frozen instance's iterate at
-the end of the whole batch (ROADMAP, "Decisions of the port").
+path runs stays as it is.  Under vmap each half of a step is one batched
+launch of its kernel (`ops/pdhg_step.py`, the operators' vmap rule) and
+each product one batched cuBLAS product.
+
+The blocks run through the single-instance path's runner
+(`graph.py`) with the vmapped window and metrics: on one card each
+ramped block is replays of two captured CUDA graphs (one vmapped
+restart window, then the metrics), as the JAX package runs the batch's
+windows as one jitted program; on the CPU op by op.  The host loop keeps
+per-instance termination state; finished instances are frozen by
+zeroing their step size, and each reports the iterate (and restart
+count) its convergence check passed, where the JAX package reports the
+frozen instance's iterate at the end of the whole batch (ROADMAP,
+"Decisions of the port").
 """
 from __future__ import annotations
 
 import time
-from typing import List, Sequence, Tuple
+from typing import List, NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -28,8 +37,9 @@ from ...models.lp import HighsLp
 from ...models.solution import HighsSolution
 from ...ops.linops import DenseMatrix
 from ...options import HighsOptions
+from .graph import EagerBlocks, GraphBlocks, cuda_graph, on_one_card
 from .pdhg import (PdhgMetrics, PdhgProblem, PdhgState, RestartCtl,
-                   pdhg_block_windows, power_method)
+                   _compute_metrics, power_method, restart_window)
 from .preprocess import preprocess_lp, recover_solution
 from .scaling import scale_problem
 from .wrapper import PdlpRunInfo, _bucket
@@ -47,20 +57,56 @@ def resolve_batch_dtype(options: HighsOptions) -> str:
     return "float64"
 
 
+def _vectors(problem: PdhgProblem) -> dict:
+    return {f: getattr(problem, f) for f in _VECTORS}
+
+
+def batched_window(problem: PdhgProblem, state: PdhgState,
+                   ctl: RestartCtl, gamma: float, interval: int,
+                   theta: torch.Tensor, step_op=None):
+    """One single-instance restart window (`pdhg.restart_window`),
+    vmapped over the leading batch dimension of a dense-K problem, its
+    state and its restart control: (state, ctl).  The batch has no
+    low-precision step operator (`step_op` must be None)."""
+    if step_op is not None:
+        raise ValueError("the batch takes no step operator")
+
+    def one(k_a, vecs, state, ctl):
+        prob = PdhgProblem(k_op=DenseMatrix(k_a), **vecs)
+        return restart_window(prob, state, ctl, gamma, interval, theta)
+    return torch.func.vmap(one)(problem.k_op.a, _vectors(problem), state,
+                                ctl)
+
+
+def batched_metrics(problem: PdhgProblem, state: PdhgState) -> PdhgMetrics:
+    """Each instance's convergence metrics (`pdhg._compute_metrics`,
+    vmapped), as (b,) tensors."""
+    def one(k_a, vecs, state):
+        return _compute_metrics(PdhgProblem(k_op=DenseMatrix(k_a), **vecs),
+                                state)
+    return torch.func.vmap(one)(problem.k_op.a, _vectors(problem), state)
+
+
+def batch_runner(problem: PdhgProblem, interval: int, capture=None):
+    """The runner of the batch's blocks (`graph.py`) with the vmapped
+    window and metrics: replayed CUDA graphs where the batch lies on one
+    card (or with `capture`, as the CPU tests pass
+    `graph.eager_recorder`), else op by op."""
+    if capture is None and on_one_card(problem, problem.b.device):
+        capture = cuda_graph
+    if capture is None:
+        return EagerBlocks(problem, batched_window, batched_metrics)
+    return GraphBlocks(problem, interval, capture, batched_window,
+                       batched_metrics)
+
+
 def batched_pdhg_windows(problem: PdhgProblem, state: PdhgState,
                          ctl: RestartCtl, n_windows: int, gamma: float,
                          interval: int, theta: torch.Tensor):
-    """The single-instance restart windows (pdhg.pdhg_block_windows),
-    vmapped over the leading batch dimension of a dense-K problem, its
-    state and its restart control.  The steps take the plain chain
-    (`ops/pdhg_step.py` `primal_step_plain`, `dual_step_plain`): a
-    kernel bound through ctypes cannot run under vmap."""
-    def one(k_a, vecs, state, ctl):
-        prob = PdhgProblem(k_op=DenseMatrix(k_a), **vecs)
-        return pdhg_block_windows(prob, state, ctl, n_windows, gamma,
-                                  interval, theta, plain=True)
-    vecs = {f: getattr(problem, f) for f in _VECTORS}
-    return torch.func.vmap(one)(problem.k_op.a, vecs, state, ctl)
+    """n_windows vmapped restart windows (`batched_window`), then each
+    instance's metrics, op by op: (state, ctl, metrics)."""
+    return EagerBlocks(problem, batched_window, batched_metrics).windows(
+        state, ctl, n_windows, gamma, interval, theta, None)
 
 
 def batched_restart(state: PdhgState, flags: torch.Tensor,
@@ -127,14 +173,24 @@ def _instance_arrays(std, options, n_pad, m_pad, np_dtype):
     return arrays, (dr, dc)
 
 
-def solve_lp_batch(lps: Sequence[HighsLp], options: HighsOptions,
-                   log=None, device=None
-                   ) -> List[Tuple[HighsModelStatus, HighsSolution,
-                                   PdlpRunInfo]]:
-    """Solve a batch of LPs with one vmapped PDHG program on `device`
-    (default CUDA)."""
-    device = resolve_device(device)
-    t_start = time.perf_counter()
+class BatchStart(NamedTuple):
+    """A batch ready for its first block: the stacked scaled problem, the
+    cold state and restart control on the device, and what the host
+    needs to judge and recover each instance."""
+    problem: PdhgProblem
+    state: PdhgState
+    ctl: RestartCtl
+    stds: list  # each instance's standard form (preprocess.py)
+    scales: list  # each instance's (row scale, column scale)
+    norms_b: np.ndarray  # ||b|| and ||c|| as the device holds them
+    norms_c: np.ndarray
+
+
+def prepare_batch(lps: Sequence[HighsLp], options: HighsOptions,
+                  device) -> BatchStart:
+    """Preprocess, scale, pad and stack `lps` on `device`, with each
+    instance's step size from the vmapped power method and its primal
+    weight from the norms of b and c."""
     b = len(lps)
     dtype_name = resolve_batch_dtype(options)
     dtype = torch.float64 if dtype_name == "float64" else torch.float32
@@ -146,7 +202,6 @@ def solve_lp_batch(lps: Sequence[HighsLp], options: HighsOptions,
 
     per_instance = [_instance_arrays(std, options, n_pad, m_pad, np_dtype)
                     for std in stds]
-    scales = [sc for _, sc in per_instance]
 
     def stacked(name):
         return torch.as_tensor(
@@ -175,6 +230,31 @@ def solve_lp_batch(lps: Sequence[HighsLp], options: HighsOptions,
         k=torch.zeros((b,), dtype=torch.int32, device=device),
         eta=torch.as_tensor(eta0, dtype=dtype, device=device),
         omega=torch.as_tensor(omega0, dtype=dtype, device=device))
+    # per-instance on-device restart control, the same 40-step
+    # checkRestartCriteria cadence as the single-instance path
+    ctl = RestartCtl(
+        fpe_init=torch.full((b,), np.inf, dtype=dtype, device=device),
+        fpe_last=torch.full((b,), np.inf, dtype=dtype, device=device),
+        fresh=torch.ones((b,), dtype=torch.bool, device=device),
+        total_k=torch.zeros((b,), dtype=torch.int32, device=device),
+        n_restarts=torch.zeros((b,), dtype=torch.int32, device=device))
+    return BatchStart(problem, state, ctl, stds,
+                      [sc for _, sc in per_instance], norms_b, norms_c)
+
+
+def solve_lp_batch(lps: Sequence[HighsLp], options: HighsOptions,
+                   log=None, device=None, capture=None
+                   ) -> List[Tuple[HighsModelStatus, HighsSolution,
+                                   PdlpRunInfo]]:
+    """Solve a batch of LPs with one vmapped PDHG program on `device`
+    (default CUDA), each block through `batch_runner` (`capture`
+    replaces the graphs' capture step, as `pdhg.solve_pdhg`'s does)."""
+    device = resolve_device(device)
+    t_start = time.perf_counter()
+    b = len(lps)
+    problem, state, ctl, stds, scales, norms_b, norms_c = prepare_batch(
+        lps, options, device)
+    dtype = problem.c.dtype
 
     eps = options.pdlp_optimality_tolerance
     check = options.tpu_check_interval
@@ -193,17 +273,12 @@ def solve_lp_batch(lps: Sequence[HighsLp], options: HighsOptions,
     x_fin = torch.zeros_like(state.x_pd)
     y_fin = torch.zeros_like(state.y_pd)
 
-    # per-instance on-device restart control, the same 40-step
-    # checkRestartCriteria cadence as the single-instance path
-    ctl = RestartCtl(
-        fpe_init=torch.full((b,), np.inf, dtype=dtype, device=device),
-        fpe_last=torch.full((b,), np.inf, dtype=dtype, device=device),
-        fresh=torch.ones((b,), dtype=torch.bool, device=device),
-        total_k=torch.zeros((b,), dtype=torch.int32, device=device),
-        n_restarts=torch.zeros((b,), dtype=torch.int32, device=device))
     # fixed step strategy: no primal-weight update at restarts
     theta_dev = torch.zeros((), dtype=dtype, device=device)
 
+    # the blocks' runner: its state and restart control are buffers that
+    # the next block overwrites (what the loop keeps, it copies)
+    runner = batch_runner(problem, check, capture)
     n_blocks = 0
     max_block = max(check, min(2560, 64 * check))
     while True:
@@ -211,8 +286,8 @@ def solve_lp_batch(lps: Sequence[HighsLp], options: HighsOptions,
         block_steps = min(max_block, check << min(6, n_blocks // 4))
         n_windows = max(1, block_steps // check)
         block_steps = n_windows * check
-        state, ctl, metrics = batched_pdhg_windows(
-            problem, state, ctl, n_windows, 1.0, check, theta_dev)
+        state, ctl, metrics = runner.windows(
+            state, ctl, n_windows, 1.0, check, theta_dev, None)
         # every instance's metrics and restart count in one host copy
         host = torch.stack(list(metrics) + [ctl.n_restarts.to(dtype)])
         host = host.cpu().double().numpy()
@@ -252,6 +327,7 @@ def solve_lp_batch(lps: Sequence[HighsLp], options: HighsOptions,
             final_pobj[~done] = pobj[~done]
             final_dobj[~done] = dobj[~done]
             break
+    runner.close()
 
     # ---- recover per-instance solutions ------------------------------
     sel = torch.as_tensor(done, device=device)[:, None]

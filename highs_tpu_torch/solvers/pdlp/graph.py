@@ -12,7 +12,11 @@ the same methods:
   static buffers that hold the state (and the restart control), one
   restart window (`pdhg.restart_window`), one chunk of `chunk` Halpern
   or average-mode steps, and the metrics (`_compute_metrics`, or the
-  average mode's pair).  Each graph copies its new state into the
+  average mode's pair).  The window and metrics functions are the
+  runner's arguments: the batched LP solve (`batch.py`) passes its
+  vmapped window and metrics, so that the buffers hold the stacked
+  (b, ...) state and (b,) restart control, and each of its blocks is
+  replays too.  Each graph copies its new state into the
   buffers, so replays chain: a ramped block is n replays of the window
   (or chunk) graph and one of the metrics graph.  There is one graph
   per (kind, gamma, step operator, steps); a change of gamma or of the
@@ -48,7 +52,7 @@ from ...ops import block_csr, onehot_spmv, pdhg_step
 from ...parallel import shard_ops
 from .pdhg import (PdhgProblem, PdhgState, RestartCtl, _compute_metrics,
                    avg_metrics, avg_steps, halpern_steps, pdhg_block,
-                   pdhg_block_avg, pdhg_block_windows, restart_window)
+                   pdhg_block_avg, restart_window)
 
 # graphs captured and replayed in this process; "metrics" counts the
 # replays of a metrics graph, one a block
@@ -171,15 +175,25 @@ def on_one_card(problem: PdhgProblem, device: torch.device) -> bool:
 
 
 class EagerBlocks:
-    """The device blocks issued op by op."""
+    """The device blocks issued op by op.  `window(problem, state, ctl,
+    gamma, interval, theta, step_op)` and `metrics(problem, state)` are
+    the functions a Halpern block is made of."""
 
-    def __init__(self, problem: PdhgProblem):
+    def __init__(self, problem: PdhgProblem,
+                 window: Callable = restart_window,
+                 metrics: Callable = _compute_metrics):
         self.problem = problem
+        self.window = window
+        self.metrics = metrics
 
     def windows(self, state, ctl, n_windows, gamma, interval, theta,
                 step_op):
-        return pdhg_block_windows(self.problem, state, ctl, n_windows,
-                                  gamma, interval, theta, step_op)
+        """n_windows windows, then the metrics: (state, ctl, metrics) as
+        `pdhg_block_windows`."""
+        for _ in range(n_windows):
+            state, ctl = self.window(self.problem, state, ctl, gamma,
+                                     interval, theta, step_op)
+        return state, ctl, self.metrics(self.problem, state)
 
     def block(self, state, n_steps, gamma, step_op):
         return pdhg_block(self.problem, state, n_steps, gamma, step_op)
@@ -194,16 +208,21 @@ class EagerBlocks:
 class GraphBlocks:
     """The device blocks as replays of captured graphs (module doc).
 
-    The methods take and return what `EagerBlocks`' do; the state (and
-    restart control) they return are the runner's buffers, which the
-    next replay overwrites: a caller that keeps a field across blocks
-    clones it."""
+    The methods take and return what `EagerBlocks`' do, and `window` and
+    `metrics` are its functions; the state (and restart control) they
+    return are the runner's buffers, which the next replay overwrites: a
+    caller that keeps a field across blocks clones it.  The graphs read
+    the problem where it lies (the runner copies nothing of it)."""
 
     def __init__(self, problem: PdhgProblem, chunk: int,
-                 capture: Callable = cuda_graph):
+                 capture: Callable = cuda_graph,
+                 window: Callable = restart_window,
+                 metrics: Callable = _compute_metrics):
         self.problem = problem
         self.chunk = max(1, int(chunk))
         self.capture = capture
+        self.window = window
+        self.metrics = metrics
         self.device = problem.b.device
         self.state: Optional[PdhgState] = None
         self.ctl: Optional[RestartCtl] = None
@@ -279,7 +298,7 @@ class GraphBlocks:
 
     # --- the blocks ---------------------------------------------------------
     def _metrics(self):
-        g = self._graph(("metrics",), lambda: _compute_metrics(
+        g = self._graph(("metrics",), lambda: self.metrics(
             self.problem, self.state))
         self._replay(g, "metrics")
         return g.outputs
@@ -291,8 +310,8 @@ class GraphBlocks:
         self._load(state, ctl)
 
         def fn():
-            st, c = restart_window(self.problem, self.state, self.ctl,
-                                   gamma, interval, theta, step_op)
+            st, c = self.window(self.problem, self.state, self.ctl, gamma,
+                                interval, theta, step_op)
             _assign(self.state, st)
             _assign(self.ctl, c)
             return ()

@@ -34,7 +34,6 @@ scaling vectors on the device.
 from __future__ import annotations
 
 import dataclasses
-import functools
 import math
 import os
 import time
@@ -169,36 +168,26 @@ class PdhgResult:
 
 
 def _pdhg_step(problem: PdhgProblem, state: PdhgState, op, gamma: float,
-               mode: str, plain: bool):
+               mode: str):
     """The projected PDHG update both engine modes make from
     (x, y, K'y): the primal half (`ops/pdhg_step.py` `primal_step`:
     x_pd = proj(x - tau (c - K'y)) and x_r = 2 x_pd - x), the product
     K x_r, and the dual half (`dual_step`: y_pd = proj(y + sigma (b -
     K x_r))), each half also forming the mode's new iterate or running
-    sum.  `plain` takes the halves' plain chains by name (the vmapped
-    batch, where a kernel cannot run), which share one Halpern weight.
-    Returns (x_pd, y_pd, x_out, y_out, k + 1)."""
-    if plain:
-        weights = (pdhg_step.halpern_weights(state.k, state.x.dtype)
-                   if mode == "halpern" else None)
-        primal = functools.partial(pdhg_step.primal_step_plain,
-                                   weights=weights)
-        dual = functools.partial(pdhg_step.dual_step_plain, weights=weights)
-    else:
-        primal, dual = pdhg_step.primal_step, pdhg_step.dual_step
-    x_pd, x_r, x_out = primal(state.x, problem.c, state.aty, problem.lo,
-                              problem.up, state.x_anchor, state.eta,
-                              state.omega, state.k, gamma, mode)
+    sum.  Under `torch.func.vmap` each half is one batched launch (the
+    operators' vmap rule).  Returns (x_pd, y_pd, x_out, y_out, k + 1)."""
+    x_pd, x_r, x_out = pdhg_step.primal_step(
+        state.x, problem.c, state.aty, problem.lo, problem.up,
+        state.x_anchor, state.eta, state.omega, state.k, gamma, mode)
     ax_r = op.mv(x_r.to(linop_dtype(op))).to(x_r.dtype)
-    y_pd, y_out, k_next = dual(state.y, problem.b, ax_r, problem.is_eq,
-                               problem.y_lo, state.y_anchor, state.eta,
-                               state.omega, state.k, gamma, mode)
+    y_pd, y_out, k_next = pdhg_step.dual_step(
+        state.y, problem.b, ax_r, problem.is_eq, problem.y_lo,
+        state.y_anchor, state.eta, state.omega, state.k, gamma, mode)
     return x_pd, y_pd, x_out, y_out, k_next
 
 
 def _halpern_step(problem: PdhgProblem, state: PdhgState,
-                  gamma: float, step_op=None, plain: bool = False
-                  ) -> PdhgState:
+                  gamma: float, step_op=None) -> PdhgState:
     """One reflected-Halpern PDHG step (pdhg.cc:961 behavior): the two
     halves of `_pdhg_step` in Halpern mode, then K' y_new.
 
@@ -206,7 +195,7 @@ def _halpern_step(problem: PdhgProblem, state: PdhgState,
     low-precision copy of K; the iterates stay in the state dtype."""
     op = problem.k_op if step_op is None else step_op
     x_pd, y_pd, x_new, y_new, k_next = _pdhg_step(
-        problem, state, op, gamma, "halpern", plain)
+        problem, state, op, gamma, "halpern")
     aty_new = op.rmv(y_new.to(linop_dtype(op))).to(y_new.dtype)
     return state._replace(x=x_new, y=y_new, x_pd=x_pd, y_pd=y_pd,
                           aty=aty_new, k=k_next)
@@ -223,7 +212,7 @@ class RestartCtl(NamedTuple):
 
 
 def _halpern_step_fpe(problem: PdhgProblem, state: PdhgState,
-                      gamma: float, step_op=None, plain: bool = False):
+                      gamma: float, step_op=None):
     """Major Halpern step that also returns the fixed-point error
     (computeFixedPointError pdhg.cc:709) without the cross term
     2 eta dx'K'dy: fpe = sqrt(max(0, omega|dx|^2 + |dy|^2/omega)), with
@@ -231,7 +220,7 @@ def _halpern_step_fpe(problem: PdhgProblem, state: PdhgState,
     package measured the same iteration counts with and without the
     cross term and ships it off; so does this port.)"""
     x_before, y_before = state.x, state.y
-    new_state = _halpern_step(problem, state, gamma, step_op, plain)
+    new_state = _halpern_step(problem, state, gamma, step_op)
     dx = x_before - new_state.x_pd
     dy = y_before - new_state.y_pd
     movement = (state.omega * torch.sum(dx * dx) +
@@ -242,7 +231,7 @@ def _halpern_step_fpe(problem: PdhgProblem, state: PdhgState,
 
 def restart_window(problem: PdhgProblem, state: PdhgState,
                    ctl: RestartCtl, gamma: float, interval: int,
-                   theta: torch.Tensor, step_op=None, plain: bool = False):
+                   theta: torch.Tensor, step_op=None):
     """One window of `interval` steps, ending with the reference restart
     check (checkRestartCriteria pdhg.cc:901) on the device.  Nothing here
     reads a device value on the host: every decision is a tensor and a
@@ -251,17 +240,17 @@ def restart_window(problem: PdhgProblem, state: PdhgState,
     dtype = state.x.dtype
     inf = torch.full((), math.inf, dtype=dtype, device=state.x.device)
     # step 1 (major): capture initial_fpe right after a restart
-    state, fpe1 = _halpern_step_fpe(problem, state, gamma, step_op, plain)
+    state, fpe1 = _halpern_step_fpe(problem, state, gamma, step_op)
     ctl = ctl._replace(
         fpe_init=torch.where(ctl.fresh, fpe1, ctl.fpe_init),
         fresh=torch.zeros_like(ctl.fresh))
 
     # steps 2 .. interval-1 (minor)
     for _ in range(interval - 2):
-        state = _halpern_step(problem, state, gamma, step_op, plain)
+        state = _halpern_step(problem, state, gamma, step_op)
 
     # step `interval` (major) + restart check
-    state, fpe = _halpern_step_fpe(problem, state, gamma, step_op, plain)
+    state, fpe = _halpern_step_fpe(problem, state, gamma, step_op)
     ctl = ctl._replace(total_k=ctl.total_k + interval)
     forced = ctl.total_k == interval  # very first check ever
     sufficient = fpe <= 0.2 * ctl.fpe_init
@@ -301,13 +290,12 @@ def restart_window(problem: PdhgProblem, state: PdhgState,
 
 def pdhg_block_windows(problem: PdhgProblem, state: PdhgState,
                        ctl: RestartCtl, n_windows: int, gamma: float,
-                       interval: int, theta: torch.Tensor, step_op=None,
-                       plain: bool = False):
+                       interval: int, theta: torch.Tensor, step_op=None):
     """n_windows restart windows (`restart_window`), then the
     convergence metrics.  Returns (state, ctl, metrics)."""
     for _ in range(n_windows):
         state, ctl = restart_window(problem, state, ctl, gamma, interval,
-                                    theta, step_op, plain)
+                                    theta, step_op)
     metrics = _compute_metrics(problem, state)
     return state, ctl, metrics
 
@@ -376,19 +364,17 @@ def _compute_metrics(problem: PdhgProblem, state: PdhgState) -> PdhgMetrics:
 
 
 def halpern_steps(problem: PdhgProblem, state: PdhgState, n_steps: int,
-                  gamma: float, step_op=None, plain: bool = False
-                  ) -> PdhgState:
+                  gamma: float, step_op=None) -> PdhgState:
     """n_steps Halpern steps on the device, no metrics."""
     for _ in range(n_steps):
-        state = _halpern_step(problem, state, gamma, step_op, plain)
+        state = _halpern_step(problem, state, gamma, step_op)
     return state
 
 
 def pdhg_block(problem: PdhgProblem, state: PdhgState, n_steps: int,
-               gamma: float, step_op=None, plain: bool = False):
-    """Run n_steps inner steps on the device, then compute metrics
-    (`plain`: the steps' plain chains, as under vmap)."""
-    state = halpern_steps(problem, state, n_steps, gamma, step_op, plain)
+               gamma: float, step_op=None):
+    """Run n_steps inner steps on the device, then compute metrics."""
+    state = halpern_steps(problem, state, n_steps, gamma, step_op)
     return state, _compute_metrics(problem, state)
 
 
@@ -401,7 +387,7 @@ def _avg_pdhg_step(problem: PdhgProblem, state: PdhgState,
     average mode, then K' y_pd)."""
     op = problem.k_op if step_op is None else step_op
     x_pd, y_pd, x_sum, y_sum, k_next = _pdhg_step(
-        problem, state, op, 1.0, "average", False)
+        problem, state, op, 1.0, "average")
     aty_new = op.rmv(y_pd.to(linop_dtype(op))).to(y_pd.dtype)
     return state._replace(
         x=x_pd, y=y_pd, x_pd=x_pd, y_pd=y_pd,

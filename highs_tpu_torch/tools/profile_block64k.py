@@ -25,7 +25,9 @@ as `solve_pdhg` runs them on one card: once for the wall time of a step
 device time of a step by kernel (`by_kernel`: the primal and dual step
 kernels, the products and the rest); their ratio is the device's busy
 share.  Prints one JSON object as its last line and writes it to
-`--out`.  Needs a CUDA card.
+`--out`.  Needs a CUDA card.  `profile_batch_blocks` splits the blocks
+of the batched LP solve (`solvers/pdlp/batch.py`) the same way
+(`chip_smoke.py`'s batch phase).
 """
 from __future__ import annotations
 
@@ -49,10 +51,12 @@ WINDOWS = 10
 INTERVAL = 40
 # the kernels a step is split into, by a part of their name in the
 # profiler: the two step kernels of csrc/pdhg_step.cu and the products of
-# csrc/block_csr_spmv.cu and csrc/onehot_spmv.cu
+# csrc/block_csr_spmv.cu and csrc/onehot_spmv.cu (and cuBLAS's batched
+# products of the batch's dense K, gemv2N and gemv2T)
 KERNEL_GROUPS = {"pdhg_primal_step": ("primal_kernel",),
                  "pdhg_dual_step": ("dual_kernel",),
-                 "product": ("block_csr_spmv_kernel", "onehot_spmv_kernel")}
+                 "product": ("block_csr_spmv_kernel", "onehot_spmv_kernel",
+                             "gemv2N_kernel", "gemv2T_kernel")}
 
 
 def kernel_groups(kernels: dict, device_ms: float) -> dict:
@@ -127,7 +131,37 @@ def profile_blocks(problem, device, mode="halpern"):
             out = blocks.windows(state, ctl, WINDOWS, 1.0, INTERVAL, theta,
                                  None)
             pdhg.read_metrics(out[2], out[1])
+    return dict(mode=mode, **_profile(
+        run, graph.GraphBlocks(problem, INTERVAL),
+        graph.EagerBlocks(problem), steps))
 
+
+def profile_batch_blocks(start, device):
+    """`profile_blocks` for the batched LP solve (`solvers/pdlp/batch.py`):
+    10 vmapped restart windows of 40 steps of every instance of `start`
+    (a `batch.BatchStart`) from its cold state, as the batch's runner
+    replays them, then its metrics graph and the host read of its
+    metrics; the same block op by op beside it.  A step is one step of
+    every instance."""
+    from ..solvers.pdlp import batch
+    problem, state, ctl = start.problem, start.state, start.ctl
+    theta = torch.zeros((), dtype=problem.c.dtype, device=device)
+
+    def run(blocks):
+        _, c, metrics = blocks.windows(state, ctl, WINDOWS, 1.0, INTERVAL,
+                                       theta, None)
+        torch.stack(list(metrics) + [c.n_restarts.to(theta.dtype)]).cpu()
+    return dict(mode="halpern", batch=problem.c.shape[0], **_profile(
+        run, batch.batch_runner(problem, INTERVAL),
+        graph.EagerBlocks(problem, batch.batched_window,
+                          batch.batched_metrics), WINDOWS * INTERVAL))
+
+
+def _profile(run, runner, eager, steps):
+    """The wall per step of `run(runner)` (a `GraphBlocks`, replayed
+    graphs) and of `run(eager)` (op by op), each after a warm-up run,
+    then one `run(runner)` under `torch.profiler`: device ms per step
+    by kernel, the busy share, kernels and counted launches per step."""
     def wall_ms(blocks):
         run(blocks)  # warm-up (and the captures)
         torch.cuda.synchronize()
@@ -136,11 +170,8 @@ def profile_blocks(problem, device, mode="halpern"):
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e3 / steps
 
-    runner = graph.GraphBlocks(problem, INTERVAL)
-    result = {"mode": mode, "steps": steps,
-              "wall_ms_per_step": wall_ms(runner),
-              "eager_wall_ms_per_step": wall_ms(
-                  graph.EagerBlocks(problem))}
+    result = {"steps": steps, "wall_ms_per_step": wall_ms(runner),
+              "eager_wall_ms_per_step": wall_ms(eager)}
     before = graph.read_counts()
     replays = graph.COUNTS["replays"]
     from torch.autograd import DeviceType

@@ -9,6 +9,12 @@ Shared by `chip_smoke.py` (phase 19) and `tools/step_turns.py`:
   (`STEP_WIDTHS`) with their cold and per-call times beside the plain
   chains' and the byte bound, or at widths off the 16-byte grid
   (`ODD_WIDTHS`) for the bits alone;
+- `batched_step_records`: both kernels' batched launches under
+  `torch.func.vmap` (the operators' vmap rule) against the vmapped plain
+  chains, bit for bit, at the batch's sizes (`BATCHES`, `BATCH_WIDTHS`),
+  f32 and f64, both modes, with and without y_lo, some lanes frozen
+  (eta = 0), one launch a vmapped call; timed at the batch phase's
+  (16, 2,048) (`BATCH_TIMED`);
 - `offset_view_refused`: both wrappers refuse a view one element into
   its storage;
 - `kernel_sass`: each kernel's registers, and whether a global load
@@ -31,6 +37,11 @@ STEP_WIDTHS = {"block64k": 65536, "synth50k": 50176}
 # widths off the PDLP grid, checked bit for bit only: shorter than one
 # 16-byte vector, scalar tails of 1 to 3 elements, one past block64k
 ODD_WIDTHS = {f"odd{n}": n for n in (1, 3, 5, 127, 65537)}
+# the batched launches: instances and widths checked bit for bit, and the
+# (instances, width) of chip_smoke.py's batch phase, also timed
+BATCHES = (1, 3, 16)
+BATCH_WIDTHS = (128, 2048)
+BATCH_TIMED = (16, 2048)
 
 
 def _log(msg: str) -> None:
@@ -145,6 +156,122 @@ def step_kernel_records(device, widths=STEP_WIDTHS, timed=True):
     if bad:
         raise RuntimeError(f"step kernels differ from their plain chains: "
                            f"{bad}")
+    return records
+
+
+def batch_inputs(b, n, dtype, with_y_lo, device, seed):
+    """`step_inputs` for b instances of width n, stacked: (b, n)
+    vectors, each instance its own step size, primal weight and step
+    count, and every third lane from the second on frozen (eta = 0, as
+    `batch.freeze_instances` leaves a finished instance)."""
+    lanes = [step_inputs(n, n, dtype, with_y_lo, "cpu", seed + i)
+             for i in range(b)]
+    out = {name: None if lanes[0][name] is None else
+           torch.stack([v[name] for v in lanes]).to(device)
+           for name in lanes[0]}
+    rng = np.random.default_rng(seed)
+    eta = rng.uniform(0.005, 0.02, b)
+    eta[1::3] = 0.0
+    out["eta"] = torch.as_tensor(eta, dtype=dtype, device=device)
+    out["omega"] = torch.as_tensor(rng.uniform(0.5, 2.0, b), dtype=dtype,
+                                   device=device)
+    out["k"] = torch.as_tensor(rng.integers(0, 200, b), dtype=torch.int32,
+                               device=device)
+    return out
+
+
+def _vmapped(fn, y_lo, gamma, mode):
+    """`fn` (a step half with y_lo in fifth place, or the primal half
+    where `y_lo` is False) under `torch.func.vmap` over its tensors."""
+    if y_lo is False:
+        return torch.func.vmap(lambda *a: fn(*a, gamma, mode))
+    if y_lo is None:
+        return torch.func.vmap(
+            lambda y, b, ax, eq, anc, eta, om, k: fn(
+                y, b, ax, eq, None, anc, eta, om, k, gamma, mode))
+    return torch.func.vmap(lambda *a: fn(*a, gamma, mode))
+
+
+def batched_step_records(device, batches=BATCHES, widths=BATCH_WIDTHS,
+                         timed=BATCH_TIMED):
+    """Both kernels' batched launches under `torch.func.vmap` against
+    the vmapped plain chains, bit for bit, over `batches` x `widths`;
+    cold times (`time_ms` of the vmapped call) at `timed` (instances,
+    width) beside the vmapped plain chain's and the byte bound.  Raises
+    if an output differs in a bit or a vmapped call is not one launch on
+    a card."""
+    records = []
+    for b in batches:
+        for width in widths:
+            for dtype in (torch.float32, torch.float64):
+                item = torch.tensor([], dtype=dtype).element_size()
+                for mode in pdhg_step.MODES:
+                    gamma = 1.0 if mode == "average" else 0.9
+                    for with_y_lo in (False, True):
+                        v = batch_inputs(b, width, dtype, with_y_lo, device,
+                                         seed=len(records))
+                        scalars = (v["eta"], v["omega"], v["k"])
+                        d_args = (v["y"], v["b"], v["ax_r"], v["is_eq"]) + \
+                            ((v["y_lo"],) if with_y_lo else ()) + \
+                            (v["y_anchor"],) + scalars
+                        y_lo = v["y_lo"] if with_y_lo else None
+                        # bytes: the vectors read and written, the
+                        # scalars read, k + 1 written
+                        cases = [("pdhg_dual_step", pdhg_step.dual_step,
+                                  pdhg_step.dual_step_plain, d_args, y_lo,
+                                  b * ((7 + with_y_lo) * width * item +
+                                       2 * item + 8))]
+                        if not with_y_lo:
+                            cases.insert(0, (
+                                "pdhg_primal_step", pdhg_step.primal_step,
+                                pdhg_step.primal_step_plain,
+                                (v["x"], v["c"], v["aty"], v["lo"],
+                                 v["up"], v["x_anchor"]) + scalars, False,
+                                b * (9 * width * item + 2 * item + 4)))
+                        for name, kernel, plain, args, lo, nbytes in cases:
+                            fn = _vmapped(kernel, lo, gamma, mode)
+                            before = pdhg_step.LAUNCHES[name]
+                            got = fn(*args)
+                            _sync(device)
+                            launches = pdhg_step.LAUNCHES[name] - before
+                            want = _vmapped(plain, lo, gamma, mode)(*args)
+                            equal = same_bits(got, want)
+                            err = max((g.double() - w.double()).abs()
+                                      .nan_to_num(0.0).max().item()
+                                      for g, w in zip(got, want)
+                                      if g.is_floating_point())
+                            rec = dict(
+                                name=name, batch=b, width=width,
+                                dtype=str(dtype).replace("torch.", ""),
+                                mode=mode, y_lo=with_y_lo,
+                                frozen=int((v["eta"] == 0).sum()),
+                                equal_bits=equal, max_abs_err=err,
+                                launches=launches,
+                                ok=equal and (device.type != "cuda" or
+                                              launches == 1))
+                            records.append(rec)
+                            if (b, width) == timed:
+                                b_ms, b_by = bound_ms(
+                                    nbytes, 12.0 * b * width, dtype)
+                                rec.update(
+                                    ms=time_ms(fn, device, *args),
+                                    plain_ms=time_ms(
+                                        _vmapped(plain, lo, gamma, mode),
+                                        device, *args),
+                                    library_ms=None, bound_ms=b_ms,
+                                    bound_by=b_by)
+                            _log(f"batch step {name} b {b} n {width} "
+                                 f"{rec['dtype']} {mode} y_lo {with_y_lo} "
+                                 f"frozen {rec['frozen']}: equal bits "
+                                 f"{equal}, launches {launches}" +
+                                 (f", kernel_ms {rec['ms']:.5f} plain_ms "
+                                  f"{rec['plain_ms']:.5f} bound_ms "
+                                  f"{rec['bound_ms']:.5f} ({b_by})"
+                                  if "ms" in rec else ""))
+    bad = [r for r in records if not r["ok"]]
+    if bad:
+        raise RuntimeError(f"batched step kernels differ from the vmapped "
+                           f"plain chains: {bad}")
     return records
 
 

@@ -17,6 +17,7 @@
   captured windows against the eager ones (the `cuda_device` fixture
   skips these elsewhere).
 """
+import inspect
 import shutil
 
 import numpy as np
@@ -36,7 +37,7 @@ from highs_tpu_torch.convert import (linop_from_numpy,
                                      restart_ctl_from_numpy)
 from highs_tpu_torch.ops import block_csr, pdhg_step
 from highs_tpu_torch.ops.linops import DenseMatrix
-from highs_tpu_torch.parallel import shard_ops
+from highs_tpu_torch.parallel import dryrun, shard_ops
 from highs_tpu_torch.parallel.dryrun import dryrun_multichip
 from highs_tpu_torch.parallel.mesh import make_mesh
 from highs_tpu_torch.solvers.pdlp import batch, graph
@@ -547,20 +548,28 @@ def test_shard_reductions_follow_the_replays():
 
 def test_vmapped_callers_take_the_plain_chains(monkeypatch):
     """Under `torch.func.vmap` (the batch, the multi-device dry run) a
-    step must not reach the kernel wrappers: a ctypes kernel cannot take
-    a batched tensor, so on a card they would fail."""
-    def refusing(fn):
-        def run(*args):
+    step reaches the step operators, whose vmap rule makes one batched
+    call: on the CPU the plain chains run there on the (b, n) rows,
+    never on a batched tensor (on a card the rule launches the kernels),
+    and neither caller names a plain chain itself."""
+    seen = []
+
+    def watching(fn):
+        def run(*args, **kwargs):
             if any(isinstance(a, torch.Tensor) and
                    torch._C._functorch.is_batchedtensor(a) for a in args):
-                raise AssertionError("a kernel wrapper under vmap")
-            return fn(*args)
+                raise AssertionError("a plain chain under vmap")
+            seen.append(args[0].dim())
+            return fn(*args, **kwargs)
         return run
-    monkeypatch.setattr(pdhg_step, "primal_step",
-                        refusing(pdhg_step.primal_step))
-    monkeypatch.setattr(pdhg_step, "dual_step",
-                        refusing(pdhg_step.dual_step))
+    monkeypatch.setattr(pdhg_step, "primal_step_plain",
+                        watching(pdhg_step.primal_step_plain))
+    monkeypatch.setattr(pdhg_step, "dual_step_plain",
+                        watching(pdhg_step.dual_step_plain))
     dryrun_multichip(2, devices=[torch.device("cpu")] * 2)
+    # its vmapped layout's steps come as rows (its others are unbatched)
+    assert 2 in seen
+    seen.clear()
     probs, states = [], []
     for i in range(2):
         k, arrays = _arrays(20 + i, False, False)
@@ -577,6 +586,12 @@ def test_vmapped_callers_take_the_plain_chains(monkeypatch):
         restart_ctl_from_numpy(ctl, device="cpu"), 2, 1.0, 10,
         torch.tensor(0.0, dtype=torch.float64))
     assert tc.total_k.tolist() == [20, 20]
+    # one call a half-step, on the batch's rows
+    assert seen and set(seen) == {2}
+    for module in (batch, dryrun, tp):
+        source = inspect.getsource(module)
+        assert "primal_step_plain" not in source
+        assert "dual_step_plain" not in source
 
 
 def test_graphs_only_on_one_card():
@@ -707,7 +722,7 @@ def test_graph_window_at_odd_widths_on_card(cuda_device, mode):
     runner.close()
 
 
-def test_graph_window_equals_eager_on_card(cuda_device):
+def test_graph_window_equals_eager_on_card(cuda_device, monkeypatch):
     prob, state = _card_problem(cuda_device, 9)
     state = state._replace(k=torch.zeros_like(state.k))
     ctl = restart_ctl_from_numpy(dict(
@@ -718,8 +733,9 @@ def test_graph_window_equals_eager_on_card(cuda_device):
     runner = graph.GraphBlocks(prob, 40)
     got = runner.windows(state, ctl, 4, 1.0, 40, theta, None)
     want = tp.pdhg_block_windows(prob, state, ctl, 4, 1.0, 40, theta)
-    plain = tp.pdhg_block_windows(prob, state, ctl, 4, 1.0, 40, theta,
-                                  plain=True)
+    monkeypatch.setattr(pdhg_step, "primal_step", pdhg_step.primal_step_plain)
+    monkeypatch.setattr(pdhg_step, "dual_step", pdhg_step.dual_step_plain)
+    plain = tp.pdhg_block_windows(prob, state, ctl, 4, 1.0, 40, theta)
     torch.cuda.synchronize()
     for g, w, p in zip((*got[0], *got[1], *got[2]),
                        (*want[0], *want[1], *want[2]),
