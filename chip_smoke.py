@@ -160,17 +160,25 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                       infeasible MIP: the statuses and, where optimal, the
                       objectives of scipy's `milp` on the card's host;
 16. mip_batch the same set cover with `tpu_mip_batch_nodes` 8 (rounds of
-            8 open nodes, the IPM's dense step under vmap on the card)
-            and `time_limit` 180: kOptimal within mip_rel_gap of the
-            anchor or kTimeLimit with a certified sandwich, the incumbent
-            feasible and integral to 1e-6, at least one batched round,
-            every batched iteration on the card and no dense factor on
-            the CPU; each lane of its first 4 rounds against its node LP
-            solved by the native dual simplex on the host (a converged
-            lane's objective within 1e-6 relative, every certified dual
-            bound at most the optimum + 1e-6 (1 + |opt|)); it prints the
-            rounds, lanes, converged share, ms per batched IPM
-            iteration, nodes and seconds beside phase 15's;
+            8 open nodes, the IPM's dense step under vmap on the card,
+            each round's starting point and steps as replays of CUDA
+            graphs captured once per round size) and `time_limit` 180:
+            kOptimal within mip_rel_gap of the anchor or kTimeLimit with
+            a certified sandwich, the incumbent feasible and integral to
+            1e-6, at least one batched round, every batched iteration on
+            the card and no dense factor on the CPU, every round's start
+            and steps replayed (replays = rounds + iterations); each
+            lane of its first 4 rounds against its node LP solved by the
+            native dual simplex on the host (a converged lane's
+            objective within 1e-6 relative, every certified dual bound at
+            most the optimum + 1e-6 (1 + |opt|)); the same 4 rounds
+            through fresh evaluators as graphs and op by op: equal bit
+            for bit to each other and to the run; it prints the rounds,
+            lanes, converged share, captures and replays, ms per batched
+            IPM iteration, nodes and seconds beside phase 15's, and on
+            the 4 rounds the ms per batched iteration as graphs and op by
+            op, the busy share and the device ms by kernel
+            (`tools/node_turns.py` `profile_rounds`);
 17. interfaces ipm_dense's LP written with `write_lp` and read back,
             solved by `python3 -m highs_tpu_torch <file>.lp` in a
             subprocess (exit 0, "Optimal", the objective within 1e-6 of
@@ -1679,23 +1687,29 @@ MIP_BATCH_CHECKED_ROUNDS = 4
 def watch_batched_rounds(device, keep):
     """Wrap `BatchNodeEvaluator.evaluate` so that each round's seconds
     (up to a sync of the card) are kept, and the first `keep` rounds as
-    (relaxation LP, los, ups, results); returns both lists."""
+    (relaxation LP, los, ups, results, batched iterations); returns both
+    lists and a function that takes the wrapper off."""
     import numpy as np
+    from highs_tpu_torch.solvers.mip import batch_nodes
     from highs_tpu_torch.solvers.mip.batch_nodes import BatchNodeEvaluator
     seconds, rounds = [], []
     inner = BatchNodeEvaluator.evaluate
 
     def watched(self, los, ups):
         t0 = time.perf_counter()
+        it0 = batch_nodes.COUNTS["iterations"]
         out = inner(self, los, ups)
         sync(device)
         seconds.append(time.perf_counter() - t0)
         if len(rounds) < keep:
             rounds.append((self.relax_lp, np.array(los), np.array(ups),
-                           out))
+                           out, batch_nodes.COUNTS["iterations"] - it0))
         return out
     BatchNodeEvaluator.evaluate = watched
-    return seconds, rounds
+
+    def unwatch():
+        BatchNodeEvaluator.evaluate = inner
+    return seconds, rounds, unwatch
 
 
 def check_lanes(recorded, device):
@@ -1709,7 +1723,7 @@ def check_lanes(recorded, device):
     from highs_tpu_torch.solvers.simplex.wrapper import solve_lp_simplex
     out = dict(lanes=0, converged=0, certified=0, infeasible=0,
                worst_obj_rel=0.0, worst_bound_excess=-math.inf)
-    for relax_lp, los, ups, results in recorded:
+    for relax_lp, los, ups, results, _ in recorded:
         sense = float(relax_lp.sense)
         for lo, up, (converged, bound, x) in zip(los, ups, results):
             node = relax_lp.copy()
@@ -1748,6 +1762,43 @@ def check_lanes(recorded, device):
     return out
 
 
+def node_graphs_check(recorded, device):
+    """The recorded rounds through fresh evaluators of their relaxations,
+    as graphs (the card's default) and op by op (`capture` None): equal
+    bit for bit to each other and to the rounds of the run (each lane's
+    flag, bound and x, each round's iterations); the captures of the
+    fresh graph evaluators; then, on the first relaxation's rounds, the
+    wall ms per batched iteration of both paths, and the graphs' device
+    ms per iteration by kernel and busy share (`tools/node_turns.py`
+    `profile_rounds`)."""
+    from highs_tpu_torch.solvers.mip import batch_nodes
+    from highs_tpu_torch.solvers.mip.batch_nodes import BatchNodeEvaluator
+    from highs_tpu_torch.tools.node_turns import (profile_rounds,
+                                                  run_rounds, same_bits)
+    groups = {}
+    for relax_lp, los, ups, results, iterations in recorded:
+        g = groups.setdefault(id(relax_lp), (relax_lp, [], []))
+        g[1].append((los, ups))
+        g[2].append((results, iterations))
+    out = dict(relaxations=len(groups), rounds=len(recorded),
+               equal_to_eager=True, equal_to_run=True, captures=0)
+    for relax_lp, rounds, run in groups.values():
+        c0 = batch_nodes.COUNTS["captures"]
+        graphs = BatchNodeEvaluator(relax_lp, device=device)
+        got = run_rounds(graphs, rounds)
+        out["captures"] += batch_nodes.COUNTS["captures"] - c0
+        eager = BatchNodeEvaluator(relax_lp, device=device)
+        eager.capture = None
+        out["equal_to_eager"] &= same_bits(got, run_rounds(eager, rounds))
+        out["equal_to_run"] &= same_bits(got, run)
+        if "graphs" not in out:
+            out["graphs"] = profile_rounds(graphs, rounds)
+            out["eager"] = profile_rounds(eager, rounds)
+        graphs.close()
+        eager.close()
+    return out
+
+
 def mip_batch_phase(device, sequential_seconds):
     """Phase 16: set cover 500 x 1,000 with batched node LPs on the
     card, its lanes checked against the native simplex."""
@@ -1755,14 +1806,17 @@ def mip_batch_phase(device, sequential_seconds):
     from highs_tpu_torch.solvers.mip import batch_nodes
     from highs_tpu_torch.tools.mip_anchors import load, model
     anchor = load()["setcover"]
-    round_seconds, rounds = watch_batched_rounds(device,
-                                                 MIP_BATCH_CHECKED_ROUNDS)
+    round_seconds, rounds, unwatch = watch_batched_rounds(
+        device, MIP_BATCH_CHECKED_ROUNDS)
     counts0 = dict(batch_nodes.COUNTS)
     factors0 = dict(ipm_solver.DENSE_FACTORS)
     reset_launches()
-    h, rec = mip_solve("mip_batch", model("setcover"), device,
-                       {"time_limit": MIP_BATCH_TIME_LIMIT,
-                        "tpu_mip_batch_nodes": MIP_BATCH_K})
+    try:
+        h, rec = mip_solve("mip_batch", model("setcover"), device,
+                           {"time_limit": MIP_BATCH_TIME_LIMIT,
+                            "tpu_mip_batch_nodes": MIP_BATCH_K})
+    finally:
+        unwatch()
     rec["kernel_launches"] = read_launches()
     counts = {k: batch_nodes.COUNTS[k] - counts0[k] for k in counts0}
     factors = {k: ipm_solver.DENSE_FACTORS[k] - factors0[k]
@@ -1779,6 +1833,10 @@ def mip_batch_phase(device, sequential_seconds):
     t0 = time.perf_counter()
     rec["lane_check"] = check_lanes(rounds, device)
     rec["lane_check"]["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rec["node_graphs"] = node_graphs_check(rounds, device)
+    rec["node_graphs"]["seconds"] = time.perf_counter() - t0
+    graphs, eager = rec["node_graphs"]["graphs"], rec["node_graphs"]["eager"]
     rel_gap = h.getOptionValue("mip_rel_gap")
     rec["anchor"] = anchor
     rec["rel_obj"] = abs(rec["objective"] - anchor) / max(1.0, abs(anchor))
@@ -1804,10 +1862,30 @@ def mip_batch_phase(device, sequential_seconds):
         f"{factors}; nodes {rec['nodes']} in {rec['seconds']:.2f} s "
         f"(the sequential engine of phase 15: {sequential_seconds:.2f} s); "
         f"lane check {rec['lane_check']}")
+    log(f"mip_batch: graphs: {counts['captures']} captures, "
+        f"{counts['replays']} replays ({counts['rounds']} starts, "
+        f"{counts['iterations']} steps); the first "
+        f"{rec['node_graphs']['rounds']} rounds replayed through fresh "
+        f"evaluators: {rec['node_graphs']['captures']} captures, as graphs "
+        f"equal bit for bit to op by op {rec['node_graphs']['equal_to_eager']}"
+        f" and to the run {rec['node_graphs']['equal_to_run']}; on them "
+        f"{graphs['wall_ms_per_iteration']!r} ms a batched iteration "
+        f"as graphs, {eager['wall_ms_per_iteration']!r} op by op; device "
+        f"{graphs['device_ms_per_iteration']!r} ms an iteration, busy "
+        f"share {graphs['device_busy_share']!r}, kernels "
+        f"{graphs['kernels_per_iteration']!r} an iteration; device ms by "
+        f"group {graphs['by_group']}; top kernels "
+        f"{graphs['top_kernels']}")
     other = "cpu" if device.type == "cuda" else "cuda"
+    # every round's start and steps as replays, where the card has graphs
+    replayed = device.type != "cuda" or (
+        counts["captures"] >= 2 and
+        counts["replays"] == counts["rounds"] + counts["iterations"])
     if not ok or not counts["rounds"] or counts[other] or \
             counts[device.type] < counts["iterations"] or factors[other] or \
-            not rec["lane_check"]["lanes"] or \
+            not replayed or not rec["lane_check"]["lanes"] or \
+            not rec["node_graphs"]["equal_to_eager"] or \
+            not rec["node_graphs"]["equal_to_run"] or \
             rec["seconds"] > MIP_BATCH_TIME_LIMIT + 30.0:
         raise RuntimeError(f"mip_batch: {rec}")
     return rec
@@ -2366,6 +2444,7 @@ def window_check(problem, device, n_windows=4):
     same start on `problem`: state, restart control and metrics."""
     import math as _m
     import torch
+    from highs_tpu_torch.solvers.capture import cuda_graph, eager_recorder
     from highs_tpu_torch.solvers.pdlp import graph, pdhg
     from highs_tpu_torch.tools.step_bench import same_bits
 
@@ -2390,9 +2469,9 @@ def window_check(problem, device, n_windows=4):
             total_k=torch.zeros((), dtype=torch.int32, device=device),
             n_restarts=torch.zeros((), dtype=torch.int32, device=device))
     theta = torch.tensor(0.5, dtype=dtype, device=device)
-    runner = graph.GraphBlocks(problem, 40, graph.cuda_graph
+    runner = graph.GraphBlocks(problem, 40, cuda_graph
                                if device.type == "cuda"
-                               else graph.eager_recorder)
+                               else eager_recorder)
     got = runner.windows(state, ctl(), n_windows, 1.0, 40, theta, None)
     got = [type(part)(*(t.clone() for t in part)) for part in got]
     runner.close()

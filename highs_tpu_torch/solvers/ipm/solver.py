@@ -262,7 +262,14 @@ def cholesky(mat: torch.Tensor) -> torch.Tensor:
 
 
 def cho_solve(chol: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
-    return torch.cholesky_solve(rhs[:, None], chol)[:, 0]
+    """x with (L L') x = rhs, as two triangular solves (cuBLAS on a
+    card).  Under `torch.func.vmap` `torch.cholesky_solve` becomes a
+    batched solve that PyTorch sends to MAGMA where the build has it,
+    which allocates on the device inside the call and so cannot be
+    captured in a CUDA graph (`mip/batch_nodes.py`); the two solves
+    can, batched or not."""
+    z = torch.linalg.solve_triangular(chol, rhs[:, None], upper=False)
+    return torch.linalg.solve_triangular(chol.mT, z, upper=True)[:, 0]
 
 
 def pcg(mdot, b: torch.Tensor, precond, tol: float = 1e-14,

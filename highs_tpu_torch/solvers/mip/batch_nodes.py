@@ -18,10 +18,25 @@ node engine.  The JAX package builds the slack upper bounds of a round
 with one row instead of K (`_problem_fields`), so every round of K >= 2
 nodes raises there and its solver, which swallows the error, never
 evaluates a batch; here they have K rows.
+
+The JAX package compiles the vmapped starting point and step each into
+one program (`jax.jit`, `highs_tpu/solvers/mip/batch_nodes.py:83,93`).
+Here a round of K lanes works on static buffers (`_Round`: the lanes'
+bounds and masks, the state, the previous state, the regularizations
+and the (7, K) metrics), and on a card the starting point and the step
+are each one captured CUDA graph over them (`solvers/capture.py`
+`cuda_graph`), captured at the first round of that K and replayed by
+every later one.  The step graph writes the new state into the state
+buffers (and the old one into the previous-state buffers), so replays
+chain; the host reads the metrics with one copy an iteration and runs
+the convergence test, and it reverts a broken lane in the buffers, as
+the JAX package's loop does between its jitted steps.  On the CPU the
+same work runs op by op.  `close()` frees the graphs and their memory.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+import contextlib
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -30,23 +45,57 @@ from ...device import resolve_device
 from ...models.lp import HighsLp
 from ..ipm.solver import (IpmProblem, IpmSettings, IpmState,
                           _geo_scale_dense, ipm_step, starting_point)
+from ..capture import counted_capture, counted_replay, cuda_graph
 from ..pdlp.preprocess import preprocess_lp, recover_solution
 
 F64 = torch.float64
 # batched rounds, their lanes, the lanes that converged and the batched
-# IPM iterations, with the iterations by device type: read like the
-# kernels' launch counters (a batched step factors every lane at once, so
-# `ipm/solver.py`'s DENSE_FACTORS counts it once)
+# IPM iterations, with the iterations by device type, and the graphs
+# captured and replayed (a round's starting point and each of its
+# steps): read like the kernels' launch counters (a batched step
+# factors every lane at once, so `ipm/solver.py`'s DENSE_FACTORS counts
+# it once)
 COUNTS = {"rounds": 0, "lanes": 0, "converged": 0, "iterations": 0,
-          "cuda": 0, "cpu": 0}
+          "cuda": 0, "cpu": 0, "captures": 0, "replays": 0}
+
+
+class _Round:
+    """The static buffers of the rounds of K lanes, and the start and
+    step graphs over them once captured (by name: (replay, counts))."""
+
+    def __init__(self, K: int, n: int, m: int, device: torch.device):
+        def empty(*shape):
+            return torch.empty(shape, dtype=F64, device=device)
+
+        def state():
+            return IpmState(x=empty(K, n), xl=empty(K, n), xu=empty(K, n),
+                            y=empty(K, m), zl=empty(K, n), zu=empty(K, n))
+        # lo, up, lo_fin, up_fin, active over the n = n_std + m columns
+        self.lanes = tuple(empty(K, n) for _ in range(5))
+        self.state = state()
+        self.prev = state()
+        self.regs = empty(K, 2)
+        self.metrics = empty(7, K)
+        self.graphs: Dict[str, Tuple[Callable, dict]] = {}
 
 
 class BatchNodeEvaluator:
+    """K node LPs of one relaxation a round (module doc).  `capture` is
+    the capture step of the rounds' graphs: by default `cuda_graph` on a
+    card and None (op by op) on the CPU; the CPU tests pass
+    `capture.eager_recorder`, and a measurement on the card sets the
+    attribute to None to run the same rounds op by op."""
+
     def __init__(self, relax_lp: HighsLp, device=None,
-                 tolerance: float = 1e-9, max_iters: int = 80):
+                 tolerance: float = 1e-9, max_iters: int = 80,
+                 capture: Optional[Callable] = None):
         self.device = resolve_device(device)
         self.tolerance = tolerance
         self.max_iters = max_iters
+        if capture is None and self.device.type == "cuda":
+            capture = cuda_graph
+        self.capture = capture
+        self._rounds: Dict[int, _Round] = {}
         self.relax_lp = relax_lp
         self.n_orig = relax_lp.num_col
 
@@ -79,6 +128,48 @@ class BatchNodeEvaluator:
 
     def _dev(self, v) -> torch.Tensor:
         return torch.as_tensor(v, dtype=F64, device=self.device)
+
+    def close(self) -> None:
+        """Free the rounds' buffers and graphs (and the graphs' memory
+        pools)."""
+        self._rounds.clear()
+
+    # --- the rounds' work on their buffers ----------------------------------
+    def _start(self, r: _Round) -> None:
+        for buf, new in zip(r.state, self._vstart(r.lanes)):
+            buf.copy_(new)
+
+    def _step(self, r: _Round) -> None:
+        new, metrics = self._vstep(r.lanes, r.state, r.regs)
+        for old, buf in zip(r.prev, r.state):
+            old.copy_(buf)
+        for buf, val in zip(r.state, new):
+            buf.copy_(val)
+        r.metrics.copy_(torch.stack(list(metrics)))
+
+    def _run(self, r: _Round, name: str) -> None:
+        """The round's start or step: op by op without a capture step,
+        else a replay of its graph, captured at its first use."""
+        work = self._start if name == "start" else self._step
+        if self.capture is None:
+            work(r)
+            return
+        scope = (torch.cuda.device(self.device)
+                 if self.device.type == "cuda" else contextlib.nullcontext())
+        with scope:
+            if name not in r.graphs:
+                def fn():
+                    work(r)
+                    return ()  # the buffers are the graph's outputs
+                saved = [t.clone() for t in (*r.state, *r.prev)]
+                replay, _, counts = counted_capture(self.capture, fn)
+                # the warm-up (or a recorder's first call) ran the work
+                for buf, val in zip((*r.state, *r.prev), saved):
+                    buf.copy_(val)
+                r.graphs[name] = (replay, counts)
+                COUNTS["captures"] += 1
+            counted_replay(*r.graphs[name])
+        COUNTS["replays"] += 1
 
     def _problem(self, lanes) -> IpmProblem:
         lo, up, lo_fin, up_fin, active = lanes
@@ -128,9 +219,14 @@ class BatchNodeEvaluator:
         los = np.asarray(los, dtype=np.float64)
         ups = np.asarray(ups, dtype=np.float64)
         K = los.shape[0]
-        lanes = tuple(self._dev(f) for f in self._problem_fields(los, ups))
-        state = self._vstart(lanes)
-        regs = self._dev(np.tile(self._regs, (K, 1)))
+        r = self._rounds.get(K)
+        if r is None:
+            r = self._rounds[K] = _Round(K, self.n_std + self.m, self.m,
+                                         self.device)
+        for buf, f in zip(r.lanes, self._problem_fields(los, ups)):
+            buf.copy_(torch.as_tensor(f))
+        r.regs.copy_(torch.as_tensor(np.tile(self._regs, (K, 1))))
+        self._run(r, "start")
         COUNTS["rounds"] += 1
         COUNTS["lanes"] += K
 
@@ -141,22 +237,22 @@ class BatchNodeEvaluator:
         best_dual = np.full(K, -np.inf)
         mh = None
         for it in range(self.max_iters):
-            prev_state = state
-            state, metrics = self._vstep(lanes, state, regs)
+            self._run(r, "step")
             COUNTS["iterations"] += 1
             COUNTS[self.device.type] += 1
             # the host reads the step's metrics, (7, K), once
-            mh = torch.stack(list(metrics)).cpu().numpy()
+            mh = r.metrics.cpu().numpy()
             primal_res, dual_res, mu, pobj, dobj = mh[:5]
             bad = ~np.isfinite(mu)
             if bad.any():
-                # revert the broken lanes, escalate their regularization
+                # revert the broken lanes in the buffers, escalate their
+                # regularization
                 bad_dev = torch.as_tensor(bad, device=self.device)
-                state = IpmState(*(
-                    torch.where(bad_dev.reshape((K,) + (1,) * (new.ndim - 1)),
-                                old, new)
-                    for new, old in zip(state, prev_state)))
-                regs = regs * torch.where(bad_dev[:, None], 100.0, 1.0)
+                for buf, old in zip(r.state, r.prev):
+                    buf.copy_(torch.where(
+                        bad_dev.reshape((K,) + (1,) * (buf.ndim - 1)),
+                        old, buf))
+                r.regs.mul_(torch.where(bad_dev[:, None], 100.0, 1.0))
             rel_p = primal_res / norm_b
             rel_d = dual_res / norm_c
             rel_gap = np.abs(pobj - dobj) / (1.0 + np.abs(pobj) +
@@ -170,7 +266,7 @@ class BatchNodeEvaluator:
 
         if mh is None:
             return [(False, -np.inf, None)] * K
-        xs = state.x.cpu().numpy()
+        xs = r.state.x.cpu().numpy()
         primal_res, dual_res, _, pobj, dobj = mh[:5]
         rel_p = primal_res / norm_b
         rel_d = dual_res / norm_c

@@ -1827,6 +1827,13 @@ def solve_mip(lp: HighsLp, options: HighsOptions, log=None,
         batch_k = max(2, options.threads) if options.threads else 8
     _batch_state = {"ev": None, "rows": -1}
 
+    def close_batch_evaluator():
+        """Free the evaluator's graphs and buffers: cuts changed the
+        relaxation's rows, or the search ended."""
+        if _batch_state["ev"] is not None:
+            _batch_state["ev"].close()
+            _batch_state["ev"] = None
+
     def get_batch_evaluator():
         """The evaluator of the current relaxation (rebuilt when cuts
         change its rows) on the MIP's device.  Unlike the JAX package, a
@@ -1835,6 +1842,7 @@ def solve_mip(lp: HighsLp, options: HighsOptions, log=None,
             return None
         nrows = _Relax.a_csc.shape[0]
         if _batch_state["ev"] is None or _batch_state["rows"] != nrows:
+            close_batch_evaluator()
             from .batch_nodes import BatchNodeEvaluator
             tmpl = HighsLp(
                 num_col=lp.num_col, num_row=nrows,
@@ -2605,7 +2613,7 @@ def solve_mip(lp: HighsLp, options: HighsOptions, log=None,
                         nd.basis = np.concatenate([nd.basis, ext])
                 if node_basis is not None:
                     node_basis = np.concatenate([node_basis, ext])
-                _batch_state["ev"] = None  # row count changed
+                close_batch_evaluator()  # row count changed
                 if log is not None:
                     log(f"MIP node separation: +{len(keep_cuts)} cuts "
                         f"({_Relax.num_cut_rows} total)")
@@ -2804,6 +2812,7 @@ def solve_mip(lp: HighsLp, options: HighsOptions, log=None,
             heapq.heappush(heap, built[plunge_child])
 
     # ---- wrap up ----------------------------------------------------------
+    close_batch_evaluator()
     open_bound = min((nd.bound for nd in heap), default=math.inf)
     if incumbent_obj < math.inf:
         dual_bound = min(open_bound, incumbent_obj)

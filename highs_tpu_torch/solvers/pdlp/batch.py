@@ -37,7 +37,8 @@ from ...models.lp import HighsLp
 from ...models.solution import HighsSolution
 from ...ops.linops import DenseMatrix
 from ...options import HighsOptions
-from .graph import EagerBlocks, GraphBlocks, cuda_graph, on_one_card
+from ..capture import cuda_graph
+from .graph import EagerBlocks, GraphBlocks, on_one_card
 from .pdhg import (PdhgMetrics, PdhgProblem, PdhgState, RestartCtl,
                    _compute_metrics, power_method, restart_window)
 from .preprocess import preprocess_lp, recover_solution
@@ -91,7 +92,7 @@ def batch_runner(problem: PdhgProblem, interval: int, capture=None):
     """The runner of the batch's blocks (`graph.py`) with the vmapped
     window and metrics: replayed CUDA graphs where the batch lies on one
     card (or with `capture`, as the CPU tests pass
-    `graph.eager_recorder`), else op by op."""
+    `capture.eager_recorder`), else op by op."""
     if capture is None and on_one_card(problem, problem.b.device):
         capture = cuda_graph
     if capture is None:

@@ -34,10 +34,8 @@ graph is only at capture.  The runner records each graph's counts at
 capture and adds them on every replay, so the counters stay true.
 
 The capture step is the runner's constructor argument: `cuda_graph` on
-the card, `eager_recorder` in the CPU tests, which replays by running
-the captured function again and copying what it returns into the
-tensors its first call returned, as a replayed graph refreshes its
-static outputs.
+the card, `eager_recorder` in the CPU tests (`solvers/capture.py`,
+which the MIP's batched node rounds share with this runner).
 """
 from __future__ import annotations
 
@@ -48,8 +46,8 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from ...ops import block_csr, onehot_spmv, pdhg_step
 from ...parallel import shard_ops
+from ..capture import counted_capture, counted_replay, cuda_graph
 from .pdhg import (PdhgProblem, PdhgState, RestartCtl, _compute_metrics,
                    avg_metrics, avg_steps, halpern_steps, pdhg_block,
                    pdhg_block_avg, restart_window)
@@ -57,62 +55,6 @@ from .pdhg import (PdhgProblem, PdhgState, RestartCtl, _compute_metrics,
 # graphs captured and replayed in this process; "metrics" counts the
 # replays of a metrics graph, one a block
 COUNTS = Counter()
-
-
-def read_counts() -> dict:
-    """The launch counters of the kernels on the PDHG path and the
-    shard reductions, by name."""
-    return {"block_csr_spmv": block_csr.LAUNCHES,
-            "onehot_spmv": onehot_spmv.LAUNCHES["onehot_spmv"],
-            **pdhg_step.LAUNCHES,
-            "shard_reductions": shard_ops.REDUCTIONS}
-
-
-def write_counts(counts: dict) -> None:
-    block_csr.LAUNCHES = counts["block_csr_spmv"]
-    onehot_spmv.LAUNCHES["onehot_spmv"] = counts["onehot_spmv"]
-    for name in pdhg_step.LAUNCHES:
-        pdhg_step.LAUNCHES[name] = counts[name]
-    shard_ops.REDUCTIONS = counts["shard_reductions"]
-
-
-def cuda_graph(fn: Callable):
-    """Capture step on a card: one warm-up call of `fn` on a side stream
-    (cuBLAS sets up its workspace, the kernels' libraries load), then
-    `fn` captured as one CUDA graph.  Returns (replay, outputs): each
-    replay runs the captured work and refreshes `outputs` in place."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    # another thread's CUDA calls (a MIP's heuristics) do not void it
-    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-        outputs = fn()
-    return graph.replay, outputs
-
-
-def _copy_tree(dst, src) -> None:
-    if isinstance(dst, torch.Tensor):
-        dst.copy_(src)
-    else:
-        for d, s in zip(dst, src):
-            _copy_tree(d, s)
-
-
-def eager_recorder(fn: Callable):
-    """Capture step for a run without a card: the first call of `fn`
-    gives the outputs; a replay calls `fn` again and copies what it
-    returns into them.  As a replayed graph runs no Python, a replay
-    leaves the launch counters as it found them."""
-    outputs = fn()
-
-    def replay():
-        counts = read_counts()
-        _copy_tree(outputs, fn())
-        write_counts(counts)
-    return replay, outputs
 
 
 def _assign(dst: tuple, src: tuple) -> None:
@@ -258,33 +200,20 @@ class GraphBlocks:
                     if k[0] == key[0] and k[1:3] != key[1:3]]:
             del self.graphs[old]
         saved = tuple(t.clone() for t in self._buffers())
-        before = read_counts()
-        one_run = {}
-
-        def counted():
-            start = read_counts()
-            out = fn()
-            one_run.clear()
-            one_run.update({k: v - start[k]
-                            for k, v in read_counts().items()})
-            return out
         with self._device_scope():
-            replay, outputs = self.capture(counted)
+            replay, outputs, counts = counted_capture(self.capture, fn)
             # a warm-up (or a recorder's first call) ran the work: put
             # the state back as it was before
             for buf, val in zip(self._buffers(), saved):
                 buf.copy_(val)
-        write_counts(before)
-        g = _Graph(replay, outputs, dict(one_run), fn)
+        g = _Graph(replay, outputs, counts, fn)
         self.graphs[key] = g
         COUNTS["captures"] += 1
         return g
 
     def _replay(self, g: _Graph, kind: str) -> None:
-        start = read_counts()
         with self._device_scope():
-            g.replay()
-        write_counts({k: v + g.counts.get(k, 0) for k, v in start.items()})
+            counted_replay(g.replay, g.counts)
         COUNTS["replays"] += 1
         COUNTS[kind] += 1
 

@@ -532,7 +532,7 @@ def solve_pdhg(problem: PdhgProblem, n: int, m: int,
     (`graph.GraphBlocks`); elsewhere (the CPU, a mesh over distinct
     cards) the blocks issue their operations one by one.  `capture`
     replaces the graph runner's capture step (the CPU tests pass
-    `graph.eager_recorder`)."""
+    `capture.eager_recorder`)."""
     if settings.mode not in ("halpern", "average"):
         raise ValueError(f"unknown PDHG mode {settings.mode!r}")
     t_start = time.perf_counter()
@@ -669,7 +669,8 @@ def solve_pdhg(problem: PdhgProblem, n: int, m: int,
     # the device blocks: replayed CUDA graphs on one card, else op by op.
     # The graphs' buffers are overwritten by the next block, so what the
     # host keeps across blocks (prev_iterates, avg_xy) is cloned.
-    from .graph import EagerBlocks, GraphBlocks, cuda_graph, on_one_card
+    from ..capture import cuda_graph
+    from .graph import EagerBlocks, GraphBlocks, on_one_card
     if capture is None and on_one_card(problem, device):
         capture = cuda_graph
     blocks = (EagerBlocks(problem) if capture is None

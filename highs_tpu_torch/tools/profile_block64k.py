@@ -42,6 +42,7 @@ import torch
 
 from .. import Highs, HighsModelStatus
 from ..ops import block_csr, onehot_spmv
+from ..solvers.capture import read_counts
 from ..solvers.pdlp import graph, pdhg, wrapper
 from ..utils.gen_block_lp import NBLOCKS, block_lp
 from ..utils.gen_synth_lp import synth_lp
@@ -172,7 +173,7 @@ def _profile(run, runner, eager, steps):
 
     result = {"steps": steps, "wall_ms_per_step": wall_ms(runner),
               "eager_wall_ms_per_step": wall_ms(eager)}
-    before = graph.read_counts()
+    before = read_counts()
     replays = graph.COUNTS["replays"]
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -180,7 +181,7 @@ def _profile(run, runner, eager, steps):
                              ProfilerActivity.CUDA]) as prof:
         run(runner)
         torch.cuda.synchronize()
-    after = graph.read_counts()
+    after = read_counts()
     runner.close()
     kernels = {}
     for ev in prof.key_averages():

@@ -34,6 +34,7 @@ from highs_tpu_torch.convert import (pdhg_batch_problem_from_numpy,
 from highs_tpu_torch.ops import pdhg_step
 from highs_tpu_torch.ops.linops import DenseMatrix
 from highs_tpu_torch.options import HighsOptions
+from highs_tpu_torch.solvers.capture import eager_recorder, read_counts
 from highs_tpu_torch.solvers.pdlp import batch, graph
 from highs_tpu_torch.solvers.pdlp import pdhg as tp
 from highs_tpu_torch.tools import step_bench
@@ -330,12 +331,12 @@ def test_batch_runner_equals_windows_op_by_op(monkeypatch):
     frozen = torch.tensor([False, True, False, True])
     interval, n_windows = 10, 3
 
-    runner = batch.batch_runner(problem, interval, graph.eager_recorder)
+    runner = batch.batch_runner(problem, interval, eager_recorder)
     assert isinstance(runner, graph.GraphBlocks)
     graph.COUNTS.clear()
-    before = graph.read_counts()
+    before = read_counts()
     got = _two_blocks(runner, start, frozen, n_windows, interval)
-    after = graph.read_counts()
+    after = read_counts()
     runner.close()
     assert dict(graph.COUNTS) == {"captures": 2, "replays": 8, "window": 6,
                                   "metrics": 2}
@@ -357,7 +358,7 @@ def test_solve_lp_batch_through_the_recorder():
     window graph and one of the metrics graph."""
     lps = [synth_lp(m=m, n=m, seed=i) for i, m in enumerate((100, 110, 120))]
     runs = []
-    for capture in (None, graph.eager_recorder):
+    for capture in (None, eager_recorder):
         graph.COUNTS.clear()
         blocks = []
         res = batch.solve_lp_batch(lps, HighsOptions(), log=blocks.append,

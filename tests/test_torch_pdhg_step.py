@@ -40,6 +40,7 @@ from highs_tpu_torch.ops.linops import DenseMatrix
 from highs_tpu_torch.parallel import dryrun, shard_ops
 from highs_tpu_torch.parallel.dryrun import dryrun_multichip
 from highs_tpu_torch.parallel.mesh import make_mesh
+from highs_tpu_torch.solvers.capture import eager_recorder, read_counts
 from highs_tpu_torch.solvers.pdlp import batch, graph
 from highs_tpu_torch.solvers.pdlp import pdhg as tp
 from highs_tpu_torch.tools import step_bench, step_turns
@@ -354,7 +355,7 @@ def _solve_both(tmp_path, settings, prob=None):
     both runs resume from the same one."""
     prob = _solve_problem() if prob is None else prob
     out = []
-    for name, capture in (("plain", None), ("graph", graph.eager_recorder)):
+    for name, capture in (("plain", None), ("graph", eager_recorder)):
         s = dict(settings)
         if s.get("checkpoint_file"):
             path = str(tmp_path / f"{name}.npz")
@@ -434,7 +435,7 @@ def test_runner_keeps_the_previous_iterates(m, n, seed, mode):
                                step_size_strategy="adaptive", mode=mode)
     plain = tp.solve_pdhg(prob, n, m, settings)
     graphed = tp.solve_pdhg(prob, n, m, settings,
-                            capture=graph.eager_recorder)
+                            capture=eager_recorder)
     _assert_same(plain, graphed)
 
 
@@ -487,12 +488,12 @@ def test_launch_counts_follow_the_replays(tmp_path, monkeypatch, mode):
     prob = _solve_problem()
     prob = prob._replace(k_op=_CountingDense(prob.k_op.a))
     counts = []
-    for capture in (None, graph.eager_recorder):
-        start = graph.read_counts()
+    for capture in (None, eager_recorder):
+        start = read_counts()
         res = tp.solve_pdhg(prob, N, M, tp.PdhgSettings(
             eps_optimal=1e-6, iteration_limit=2000, mode=mode),
             capture=capture)
-        end = graph.read_counts()
+        end = read_counts()
         counts.append({k: end[k] - start[k] for k in end})
     plain, graphed = counts
     assert graphed == plain
@@ -514,10 +515,10 @@ def test_runner_counts_each_replay_once(monkeypatch):
         fresh=np.asarray(True), total_k=np.asarray(0, np.int32),
         n_restarts=np.asarray(0, np.int32)), device="cpu")
     theta = torch.tensor(0.0, dtype=torch.float64)
-    runner = graph.GraphBlocks(prob, 40, graph.eager_recorder)
-    start = graph.read_counts()
+    runner = graph.GraphBlocks(prob, 40, eager_recorder)
+    start = read_counts()
     st, c, metrics = runner.windows(state, ctl, 3, 1.0, 40, theta, None)
-    end = graph.read_counts()
+    end = read_counts()
     assert end["pdhg_primal_step"] - start["pdhg_primal_step"] == 3 * 40
     assert end["pdhg_dual_step"] - start["pdhg_dual_step"] == 3 * 40
     # and the same state, restart control and metrics as the plain block
@@ -535,7 +536,7 @@ def test_shard_reductions_follow_the_replays():
     prob = _solve_problem(seed=6)
     mesh = make_mesh((2,), devices=[torch.device("cpu")] * 2)
     runs = []
-    for capture in (None, graph.eager_recorder):
+    for capture in (None, eager_recorder):
         before = shard_ops.REDUCTIONS
         res = tp.solve_pdhg(prob, N, M, tp.PdhgSettings(
             eps_optimal=1e-6, iteration_limit=1000), mesh=mesh,
