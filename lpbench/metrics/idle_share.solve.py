@@ -1,0 +1,7 @@
+"""idle_share.solve: the share of the solves' wall time in which no
+kernel, copy or set ran on the device, in %, from the profiler's trace
+over every solve of the traced window."""
+
+
+def read(run):
+    return None if run.trace is None else run.trace.idle_percent()
