@@ -37,7 +37,7 @@ from .run_data import HighsRunData
 from .utils.debug import debug_check_lp_solution
 from .utils.kkt import compute_kkt, fill_info_from_kkt
 from .utils.matrix_pic import write_matrix_pbm
-from .utils.timer import HighsTimer
+from .utils.timer import HighsTimer, span
 
 
 def githash() -> str:
@@ -99,13 +99,15 @@ class Highs(HighsModelApi, HighsAnalysisApi):
         return write_mps(self._model, filename)
 
     def passModel(self, model) -> HighsStatus:
-        if isinstance(model, HighsModel):
-            self._model = model
-        elif isinstance(model, HighsLp):
-            self._model = HighsModel(lp=model)
-        else:
-            return HighsStatus.kError
-        self._invalidate_solver_data()
+        # a span alone: run() resets the clocks
+        with span(None, "pass_model"):
+            if isinstance(model, HighsModel):
+                self._model = model
+            elif isinstance(model, HighsLp):
+                self._model = HighsModel(lp=model)
+            else:
+                return HighsStatus.kError
+            self._invalidate_solver_data()
         return HighsStatus.kOk
 
     def passHessian(self, hessian: HighsHessian) -> HighsStatus:
@@ -386,11 +388,8 @@ class Highs(HighsModelApi, HighsAnalysisApi):
         self._timer.reset()
         self._options._timer = self._timer
         self._options._callbacks = self._callbacks
-        self._timer.start("run")
-        try:
+        with self._timer.scope("run"):
             status = self._optimize_model()
-        finally:
-            self._timer.stop("run")
         self._run_time = time.perf_counter() - t0
         self._fill_run_data()
         return status
@@ -501,7 +500,8 @@ class Highs(HighsModelApi, HighsAnalysisApi):
         return HighsStatus.kOk
 
     def _call_solve_mip(self) -> HighsStatus:
-        from .presolve.presolve import postsolve_lp, presolve_lp
+        from .presolve.presolve import (log_rule_use, postsolve_lp,
+                                        presolve_lp)
         from .solvers.mip.solver import solve_mip
         lp_orig = self._model.lp
         lp = lp_orig
@@ -520,6 +520,7 @@ class Highs(HighsModelApi, HighsAnalysisApi):
         if self._options.presolve != "off" and not getattr(lp, "sos",
                                                            None):
             presolve_result = presolve_lp(lp, self._options)
+            log_rule_use(self._options, self._log)
             if presolve_result.status in (
                     HighsModelStatus.kInfeasible,
                     HighsModelStatus.kUnbounded,

@@ -19,6 +19,7 @@ from ..constants import HighsModelStatus, kHighsInf
 from ..models.lp import HighsLp
 from ..models.solution import HighsSolution
 from ..options import HighsOptions
+from ..utils.timer import span
 
 
 @dataclasses.dataclass
@@ -42,7 +43,8 @@ def presolve_lp(lp: HighsLp, options: HighsOptions) -> PresolveResult:
         return PresolveResult(HighsModelStatus.kInfeasible, lp)
 
     if lp.num_row:
-        a = lp.a_matrix.to_scipy().tocsr()
+        with span(getattr(options, "_timer", None), "presolve.setup"):
+            a = lp.a_matrix.to_scipy().tocsr()
         row_nnz = np.diff(a.indptr)
         empty_rows = row_nnz == 0
         if np.any(empty_rows):
@@ -55,6 +57,17 @@ def presolve_lp(lp: HighsLp, options: HighsOptions) -> PresolveResult:
 
     from .rules import run_presolve_rules
     return run_presolve_rules(lp, options)
+
+
+def log_rule_use(options: HighsOptions, log) -> None:
+    """Log each rule family's seconds, passes and stack entries (the
+    clocks and counters "presolve.<rule>" of the run's timer) where
+    `presolve_rule_logging` asks for them."""
+    timer = getattr(options, "_timer", None)
+    if options.presolve_rule_logging and log is not None and \
+            timer is not None:
+        for line in timer.report(prefix="presolve."):
+            log(line)
 
 
 def postsolve_lp(original_lp: HighsLp, presolve_result: PresolveResult,

@@ -35,6 +35,7 @@ from ..constants import (HighsModelStatus, HighsVarType, PresolveRuleType,
 from ..models.lp import HighsLp, HighsSparseMatrix
 from ..models.solution import HighsSolution
 from ..options import HighsOptions
+from ..utils.timer import span
 from .presolve import PresolveResult
 
 
@@ -75,6 +76,32 @@ def _rule_on(options: HighsOptions, rule: PresolveRuleType) -> bool:
     return not (options.presolve_rule_off >> int(rule)) & 1
 
 
+class _RuleClocks:
+    """The pass loop's clocks, one rule family after another:
+    `rule(name)` closes the open family's "presolve.<family>" scope,
+    counts the stack entries it pushed under the same name, and opens
+    `name`'s (None opens none)."""
+
+    def __init__(self, timer, stack: list):
+        self.timer = timer
+        self.stack = stack
+        self.name = None
+        self.scope = None
+        self.depth = 0
+
+    def __call__(self, name: Optional[str]) -> None:
+        if self.scope is not None:
+            self.scope.__exit__(None, None, None)
+            pushed = len(self.stack) - self.depth
+            if pushed and self.timer is not None:
+                self.timer.count(self.name, pushed)
+        self.name = None if name is None else "presolve." + name
+        self.scope = None if name is None else span(self.timer, self.name)
+        self.depth = len(self.stack)
+        if self.scope is not None:
+            self.scope.__enter__()
+
+
 def run_presolve_rules(lp: HighsLp, options: HighsOptions) -> PresolveResult:
     tol = options.primal_feasibility_tolerance
     m, n = lp.num_row, lp.num_col
@@ -91,9 +118,11 @@ def run_presolve_rules(lp: HighsLp, options: HighsOptions) -> PresolveResult:
     semi_mask = (integ == int(HighsVarType.kSemiContinuous)) | (
         integ == int(HighsVarType.kSemiInteger))
 
-    a = lp.a_matrix.to_scipy().tocsc()
-    a.sum_duplicates()
-    a_csr = a.tocsr()
+    timer = getattr(options, "_timer", None)
+    with span(timer, "presolve.setup"):
+        a = lp.a_matrix.to_scipy().tocsc()
+        a.sum_duplicates()
+        a_csr = a.tocsr()
     cost = lp.col_cost.copy()
     cl = lp.col_lower.copy()
     cu = lp.col_upper.copy()
@@ -104,6 +133,7 @@ def run_presolve_rules(lp: HighsLp, options: HighsOptions) -> PresolveResult:
     row_active = np.ones(m, dtype=bool)
     col_active = np.ones(n, dtype=bool)
     stack: List[tuple] = []
+    rule = _RuleClocks(timer, stack)
 
     # integer bounds round to integrality up front (reference: initial
     # sweep kPresolveRuleInitialSweep behavior)
@@ -175,11 +205,13 @@ def run_presolve_rules(lp: HighsLp, options: HighsOptions) -> PresolveResult:
 
         # rebuild row/col structures for active entries
         # (cheap: a few sparse ops per pass)
+        rule("setup")
         a = masked_csc(a)
         a_csr = a.tocsr()
         row_nnz = np.diff(a_csr.indptr)
         col_nnz = np.diff(a.indptr)
 
+        rule("empty_row")
         # --- empty rows ---------------------------------------------------
         if _rule_on(options, PresolveRuleType.kEmptyRow):
             empty = row_active & (row_nnz == 0)
@@ -193,6 +225,7 @@ def run_presolve_rules(lp: HighsLp, options: HighsOptions) -> PresolveResult:
                 row_active[empty] = False
                 changed = True
 
+        rule("singleton_row")
         # --- singleton rows ----------------------------------------------
         if _rule_on(options, PresolveRuleType.kSingletonRow):
             singles = np.nonzero(row_active & (row_nnz == 1))[0]
@@ -231,6 +264,7 @@ def run_presolve_rules(lp: HighsLp, options: HighsOptions) -> PresolveResult:
             if infeasible:
                 break
 
+        rule("fixed_col")
         # --- fixed columns -----------------------------------------------
         if _rule_on(options, PresolveRuleType.kFixedCol):
             with np.errstate(invalid="ignore"):
@@ -265,6 +299,7 @@ def run_presolve_rules(lp: HighsLp, options: HighsOptions) -> PresolveResult:
                 col_active[j] = False
                 changed = True
 
+        rule("empty_col")
         # --- empty columns -----------------------------------------------
         if _rule_on(options, PresolveRuleType.kEmptyCol):
             # recompute active col nnz after fixed-col removal
@@ -303,6 +338,7 @@ def run_presolve_rules(lp: HighsLp, options: HighsOptions) -> PresolveResult:
             if unbounded:
                 break
 
+        rule("redundant_row")
         # --- redundant rows (activity-implied) ----------------------------
         if _rule_on(options, PresolveRuleType.kRedundantRow):
             # semi variables have domain {0} u [l, u]: their effective
@@ -352,6 +388,7 @@ def run_presolve_rules(lp: HighsLp, options: HighsOptions) -> PresolveResult:
                 row_active[i] = False
                 changed = True
 
+        rule("doubleton_eq")
         # --- doubleton equations ------------------------------------------
         # MIP-safe when the ELIMINATED variable is continuous: the
         # substitution y = (d - ax x)/ay is linear and keeps x's
@@ -463,6 +500,7 @@ def run_presolve_rules(lp: HighsLp, options: HighsOptions) -> PresolveResult:
             if infeasible:
                 break
 
+        rule("duplicate_row")
         # --- duplicate (parallel) rows ------------------------------------
         if _rule_on(options, PresolveRuleType.kParallelRowsAndCols):
             a_csr = masked_csr(a)
@@ -541,6 +579,7 @@ def run_presolve_rules(lp: HighsLp, options: HighsOptions) -> PresolveResult:
             if infeasible:
                 break
 
+        rule("duplicate_col")
         # --- duplicate (parallel) columns -----------------------------------
         # (reference kPresolveRuleParallelRowsAndCols, column side of
         # HPresolve::detectParallelRowsAndCols: columns with
@@ -624,6 +663,7 @@ def run_presolve_rules(lp: HighsLp, options: HighsOptions) -> PresolveResult:
                         col_active[j2] = False
                         changed = True
 
+        rule("sparsify")
         # --- sparsify: cancel nonzeros with equality rows -------------------
         # (reference kPresolveRuleSparsify, HPresolve::sparsify: add
         # lambda * (equality row e) to row r when that nets fewer
@@ -730,6 +770,7 @@ def run_presolve_rules(lp: HighsLp, options: HighsOptions) -> PresolveResult:
                 a = summed.tocsc()
                 a_csr = a.tocsr()
 
+        rule("dependent_eq")
         # --- dependent equations --------------------------------------------
         # (reference kPresolveRuleDependentEquations: Gaussian
         # elimination over the equality rows; a row reducing to zero is
@@ -799,6 +840,7 @@ def run_presolve_rules(lp: HighsLp, options: HighsOptions) -> PresolveResult:
                 if infeasible:
                     break
 
+        rule("forcing_row")
         # --- forcing rows --------------------------------------------------
         if _rule_on(options, PresolveRuleType.kForcingRow):
             a_csr = masked_csr(a)
@@ -888,6 +930,7 @@ def run_presolve_rules(lp: HighsLp, options: HighsOptions) -> PresolveResult:
                 row_active[i] = False
                 changed = True
 
+        rule("free_col_sub")
         # --- free column singleton substitution ---------------------------
         if _rule_on(options, PresolveRuleType.kFreeColSubstitution):
             a2 = masked_csc(a)
@@ -924,6 +967,7 @@ def run_presolve_rules(lp: HighsLp, options: HighsOptions) -> PresolveResult:
                 done_rows.add(i)
                 changed = True
 
+        rule("aggregator")
         # --- implied-free column aggregation --------------------------------
         # (reference kPresolveRuleAggregator, HPresolve::aggregator
         # :463: substitute out a continuous column through an equality
@@ -1132,6 +1176,7 @@ def run_presolve_rules(lp: HighsLp, options: HighsOptions) -> PresolveResult:
                 a = summed.tocsc()
                 a_csr = a.tocsr()
 
+        rule("dominated_col")
         # --- dominated columns / dual fixing -------------------------------
         # (reference kPresolveRuleDominatedCol + HighsRedcostFixing-style
         # dual fixing inside presolve, HPresolve.cpp:394 dominatedCols)
@@ -1177,6 +1222,7 @@ def run_presolve_rules(lp: HighsLp, options: HighsOptions) -> PresolveResult:
                 col_active[j] = False
                 changed = True
 
+        rule("probing")
         # --- probing on binaries (MIP; reference kPresolveRuleProbing,
         # HPresolve probing + implication extraction) ----------------------
         if is_mip and _rule_on(options, PresolveRuleType.kProbing) and \
@@ -1243,6 +1289,7 @@ def run_presolve_rules(lp: HighsLp, options: HighsOptions) -> PresolveResult:
         changed_any |= changed
         if not changed:
             break
+    rule(None)
 
     if infeasible:
         return PresolveResult(HighsModelStatus.kInfeasible, lp,
@@ -1254,21 +1301,22 @@ def run_presolve_rules(lp: HighsLp, options: HighsOptions) -> PresolveResult:
         return PresolveResult(HighsModelStatus.kNotset, lp, reduced=False)
 
     # ---- build the reduced LP --------------------------------------------
-    keep_rows = np.nonzero(row_active)[0]
-    keep_cols = np.nonzero(col_active)[0]
-    a_red = a.tocsr()[keep_rows][:, keep_cols].tocsc()
-    reduced = HighsLp(
-        num_col=len(keep_cols), num_row=len(keep_rows),
-        col_cost=cost[keep_cols],
-        col_lower=cl[keep_cols], col_upper=cu[keep_cols],
-        row_lower=rl[keep_rows], row_upper=ru[keep_rows],
-        a_matrix=HighsSparseMatrix.from_scipy(a_red),
-        sense=lp.sense,
-        # `offset` accumulated in the original cost space
-        offset=lp.offset + offset,
-        integrality=(integ[keep_cols]
-                     if len(lp.integrality) else
-                     np.zeros(0, dtype=np.uint8)))
+    with span(timer, "presolve.build"):
+        keep_rows = np.nonzero(row_active)[0]
+        keep_cols = np.nonzero(col_active)[0]
+        a_red = a.tocsr()[keep_rows][:, keep_cols].tocsc()
+        reduced = HighsLp(
+            num_col=len(keep_cols), num_row=len(keep_rows),
+            col_cost=cost[keep_cols],
+            col_lower=cl[keep_cols], col_upper=cu[keep_cols],
+            row_lower=rl[keep_rows], row_upper=ru[keep_rows],
+            a_matrix=HighsSparseMatrix.from_scipy(a_red),
+            sense=lp.sense,
+            # `offset` accumulated in the original cost space
+            offset=lp.offset + offset,
+            integrality=(integ[keep_cols]
+                         if len(lp.integrality) else
+                         np.zeros(0, dtype=np.uint8)))
 
     result = PresolveResult(HighsModelStatus.kNotset, reduced,
                             stack=stack, reduced=True)

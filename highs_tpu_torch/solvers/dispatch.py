@@ -29,6 +29,7 @@ from ..constants import HighsModelStatus
 from ..models.lp import HighsLp
 from ..models.solution import HighsBasis, HighsSolution
 from ..options import HighsOptions
+from ..utils.timer import span
 from .classify import classify_inconclusive
 from .icrash import run_icrash
 from .ipm.wrapper import solve_lp_ipm
@@ -46,14 +47,6 @@ class LpSolveInfo:
     pdlp_iteration_count: int = -1
     solve_time: float = 0.0
     basis: Optional[HighsBasis] = None
-
-
-class _NullScope:
-    def __enter__(self):
-        return self
-
-    def __exit__(self, *exc):
-        return False
 
 
 def solve_lp(lp: HighsLp, options: HighsOptions, log=None,
@@ -75,15 +68,13 @@ def solve_lp(lp: HighsLp, options: HighsOptions, log=None,
     # its timer via the internal _timer attribute
     timer = getattr(options, "_timer", None)
 
-    def clock(name):
-        return timer.scope(name) if timer is not None else _NullScope()
-
     reduced_lp = lp
     postsolve_stack = None
     if presolve:
-        from ..presolve.presolve import presolve_lp
-        with clock("presolve"):
+        from ..presolve.presolve import log_rule_use, presolve_lp
+        with span(timer, "presolve"):
             presolve_result = presolve_lp(lp, options)
+        log_rule_use(options, log)
         if presolve_result.status in (
                 HighsModelStatus.kInfeasible, HighsModelStatus.kUnbounded,
                 HighsModelStatus.kUnboundedOrInfeasible):
@@ -94,7 +85,7 @@ def solve_lp(lp: HighsLp, options: HighsOptions, log=None,
     if options.icrash and warm_solution is None and reduced_lp.num_col:
         # iterative crash starting point (reference ICrash.cpp; the
         # result warm-starts the first-order/IPM solvers)
-        with clock("icrash"):
+        with span(timer, "icrash"):
             icrash_info = run_icrash(reduced_lp, options, log=log,
                                      device=device)
         warm_solution = HighsSolution(
@@ -109,7 +100,7 @@ def solve_lp(lp: HighsLp, options: HighsOptions, log=None,
                 f"residual {icrash_info.final_residual_norm2:.3e}, "
                 f"time {icrash_info.total_time:.2f}s")
 
-    with clock("solve"):
+    with span(timer, "solve"):
         status, solution, raw_info = _solve_core(
             reduced_lp, options, solver, log, basis, warm_solution, device)
 
@@ -136,7 +127,7 @@ def solve_lp(lp: HighsLp, options: HighsOptions, log=None,
 
     if postsolve_stack is not None and solution.value_valid:
         from ..presolve.presolve import postsolve_lp
-        with clock("postsolve"):
+        with span(timer, "postsolve"):
             solution, full_basis = postsolve_lp(lp, postsolve_stack,
                                                 solution, basis=info.basis)
         info.basis = full_basis

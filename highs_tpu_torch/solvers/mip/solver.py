@@ -52,6 +52,7 @@ from ...device import resolve_device
 from ...models.lp import HighsSparseMatrix
 from ...options import HighsOptions
 from ...utils.integers import integral_scale
+from ...utils.timer import span
 from ..classify import build_primal_feasibility_lp
 from ..ipm.solver import solve_lp_ipm_native
 from ..pdlp.wrapper import solve_lp_pdlp
@@ -157,16 +158,8 @@ def solve_mip(lp: HighsLp, options: HighsOptions, log=None,
     # read back with Highs.writeAllClocks / log_dev_level>=2) ----------
     _timer = getattr(options, "_timer", None)
 
-    class _NullScope:
-        def __enter__(self):
-            return self
-
-        def __exit__(self, *a):
-            return False
-
     def _clk(name):
-        return (_timer.scope("mip::" + name) if _timer is not None
-                else _NullScope())
+        return span(_timer, "mip::" + name)
     info = MipRunInfo()
     sense = float(lp.sense)
     feastol = options.mip_feasibility_tolerance

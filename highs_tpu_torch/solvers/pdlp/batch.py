@@ -37,6 +37,7 @@ from ...models.lp import HighsLp
 from ...models.solution import HighsSolution
 from ...ops.linops import DenseMatrix
 from ...options import HighsOptions
+from ...utils.timer import span
 from ..capture import cuda_graph
 from .graph import EagerBlocks, GraphBlocks, on_one_card
 from .pdhg import (PdhgMetrics, PdhgProblem, PdhgState, RestartCtl,
@@ -253,8 +254,11 @@ def solve_lp_batch(lps: Sequence[HighsLp], options: HighsOptions,
     device = resolve_device(device)
     t_start = time.perf_counter()
     b = len(lps)
-    problem, state, ctl, stds, scales, norms_b, norms_c = prepare_batch(
-        lps, options, device)
+    # spans alone ("highs.batch.prepare", ".block", ".recover"): the
+    # batch keeps no clocks
+    with span(None, "batch.prepare"):
+        problem, state, ctl, stds, scales, norms_b, norms_c = \
+            prepare_batch(lps, options, device)
     dtype = problem.c.dtype
 
     eps = options.pdlp_optimality_tolerance
@@ -287,11 +291,12 @@ def solve_lp_batch(lps: Sequence[HighsLp], options: HighsOptions,
         block_steps = min(max_block, check << min(6, n_blocks // 4))
         n_windows = max(1, block_steps // check)
         block_steps = n_windows * check
-        state, ctl, metrics = runner.windows(
-            state, ctl, n_windows, 1.0, check, theta_dev, None)
-        # every instance's metrics and restart count in one host copy
-        host = torch.stack(list(metrics) + [ctl.n_restarts.to(dtype)])
-        host = host.cpu().double().numpy()
+        with span(None, "batch.block"):
+            state, ctl, metrics = runner.windows(
+                state, ctl, n_windows, 1.0, check, theta_dev, None)
+            # every instance's metrics and restart count in one host copy
+            host = torch.stack(list(metrics) + [ctl.n_restarts.to(dtype)])
+            host = host.cpu().double().numpy()
         mh = PdhgMetrics(*host[:-1])
         restarts = host[-1].astype(np.int64)
         total += block_steps
@@ -331,30 +336,31 @@ def solve_lp_batch(lps: Sequence[HighsLp], options: HighsOptions,
     runner.close()
 
     # ---- recover per-instance solutions ------------------------------
-    sel = torch.as_tensor(done, device=device)[:, None]
-    xh = torch.where(sel, x_fin, state.x_pd).cpu().double().numpy()
-    yh = torch.where(sel, y_fin, state.y_pd).cpu().double().numpy()
-    results = []
-    for i, (lp, std) in enumerate(zip(lps, stds)):
-        dr, dc = scales[i]
-        n_std, m_std = std.num_col, std.num_row
-        x_std = xh[i, :n_std] * dc
-        y_std = yh[i, :m_std] * dr
-        z_std = std.c - std.a.T @ y_std
-        info = PdlpRunInfo()
-        info.status = HighsModelStatus(int(status[i]))
-        info.iterations = int(iters_done[i])
-        info.primal_obj = std.sense_mult * final_pobj[i]
-        info.dual_obj = std.sense_mult * final_dobj[i]
-        info.restarts = int(restarts_done[i])
-        info.solve_time = time.perf_counter() - t_start
-        col_value, row_dual, col_dual = recover_solution(
-            std, x_std, y_std, z_std)
-        sol = HighsSolution(
-            value_valid=True, dual_valid=True,
-            col_value=col_value, col_dual=col_dual,
-            row_value=(lp.a_matrix.to_scipy() @ col_value
-                       if lp.num_row else np.zeros(0)),
-            row_dual=row_dual)
-        results.append((info.status, sol, info))
+    with span(None, "batch.recover"):
+        sel = torch.as_tensor(done, device=device)[:, None]
+        xh = torch.where(sel, x_fin, state.x_pd).cpu().double().numpy()
+        yh = torch.where(sel, y_fin, state.y_pd).cpu().double().numpy()
+        results = []
+        for i, (lp, std) in enumerate(zip(lps, stds)):
+            dr, dc = scales[i]
+            n_std, m_std = std.num_col, std.num_row
+            x_std = xh[i, :n_std] * dc
+            y_std = yh[i, :m_std] * dr
+            z_std = std.c - std.a.T @ y_std
+            info = PdlpRunInfo()
+            info.status = HighsModelStatus(int(status[i]))
+            info.iterations = int(iters_done[i])
+            info.primal_obj = std.sense_mult * final_pobj[i]
+            info.dual_obj = std.sense_mult * final_dobj[i]
+            info.restarts = int(restarts_done[i])
+            info.solve_time = time.perf_counter() - t_start
+            col_value, row_dual, col_dual = recover_solution(
+                std, x_std, y_std, z_std)
+            sol = HighsSolution(
+                value_valid=True, dual_valid=True,
+                col_value=col_value, col_dual=col_dual,
+                row_value=(lp.a_matrix.to_scipy() @ col_value
+                           if lp.num_row else np.zeros(0)),
+                row_dual=row_dual)
+            results.append((info.status, sol, info))
     return results

@@ -47,6 +47,7 @@ import numpy as np
 import torch
 
 from ...parallel import shard_ops
+from ...utils.timer import span
 from ..capture import counted_capture, counted_replay, cuda_graph
 from .pdhg import (PdhgProblem, PdhgState, RestartCtl, _compute_metrics,
                    avg_metrics, avg_steps, halpern_steps, pdhg_block,
@@ -159,7 +160,8 @@ class GraphBlocks:
     def __init__(self, problem: PdhgProblem, chunk: int,
                  capture: Callable = cuda_graph,
                  window: Callable = restart_window,
-                 metrics: Callable = _compute_metrics):
+                 metrics: Callable = _compute_metrics,
+                 timer=None):
         self.problem = problem
         self.chunk = max(1, int(chunk))
         self.capture = capture
@@ -169,6 +171,7 @@ class GraphBlocks:
         self.state: Optional[PdhgState] = None
         self.ctl: Optional[RestartCtl] = None
         self.graphs = {}
+        self.timer = timer  # a HighsTimer for the "pdhg.capture" clock
 
     # --- buffers ----------------------------------------------------------
     def _load(self, state: PdhgState, ctl: Optional[RestartCtl] = None):
@@ -200,7 +203,7 @@ class GraphBlocks:
                     if k[0] == key[0] and k[1:3] != key[1:3]]:
             del self.graphs[old]
         saved = tuple(t.clone() for t in self._buffers())
-        with self._device_scope():
+        with span(self.timer, "pdhg.capture"), self._device_scope():
             replay, outputs, counts = counted_capture(self.capture, fn)
             # a warm-up (or a recorder's first call) ran the work: put
             # the state back as it was before

@@ -46,6 +46,7 @@ import torch
 from ...constants import HighsModelStatus
 from ...ops import pdhg_step
 from ...ops.linops import LinOp, cast_linop, linop_dtype
+from ...utils.timer import span
 
 
 class PdhgProblem(NamedTuple):
@@ -519,7 +520,8 @@ def solve_pdhg(problem: PdhgProblem, n: int, m: int,
                offset: float = 0.0,
                mesh=None,
                log=None,
-               capture=None) -> PdhgResult:
+               capture=None,
+               timer=None) -> PdhgResult:
     """Host loop: restart/termination control around the device
     blocks.  The device is the one the problem's tensors live on.
 
@@ -532,7 +534,10 @@ def solve_pdhg(problem: PdhgProblem, n: int, m: int,
     (`graph.GraphBlocks`); elsewhere (the CPU, a mesh over distinct
     cards) the blocks issue their operations one by one.  `capture`
     replaces the graph runner's capture step (the CPU tests pass
-    `capture.eager_recorder`)."""
+    `capture.eager_recorder`).  `timer` (a `HighsTimer`, or None) takes
+    the clocks "pdhg.power", "pdhg.block" (each block with the host read
+    of its metrics) and "pdhg.capture" (each graph capture, inside a
+    block)."""
     if settings.mode not in ("halpern", "average"):
         raise ValueError(f"unknown PDHG mode {settings.mode!r}")
     t_start = time.perf_counter()
@@ -545,9 +550,10 @@ def solve_pdhg(problem: PdhgProblem, n: int, m: int,
     def dev(a, dt=dtype):
         return torch.as_tensor(a, dtype=dt, device=device)
 
-    norm_k = power_method(problem.k_op, n, settings.power_method_iters,
-                          dtype, device)
-    eta0 = 0.998 / float(norm_k)
+    with span(timer, "pdhg.power"):
+        norm_k = power_method(problem.k_op, n, settings.power_method_iters,
+                              dtype, device)
+        eta0 = 0.998 / float(norm_k)
 
     norm_b = float(problem.norm_b)
     norm_c = float(problem.norm_c)
@@ -674,33 +680,34 @@ def solve_pdhg(problem: PdhgProblem, n: int, m: int,
     if capture is None and on_one_card(problem, device):
         capture = cuda_graph
     blocks = (EagerBlocks(problem) if capture is None
-              else GraphBlocks(problem, base_steps, capture))
+              else GraphBlocks(problem, base_steps, capture, timer=timer))
 
     while True:
         block_steps = min(max_block,
                           base_steps << min(6, (n_blocks +
                                                 settings.ramp_start) // 4))
-        if avg_mode:
-            state, m_cur_d, m_avg_d, x_avg, y_avg = blocks.block_avg(
-                state, block_steps, step_op)
-            m_cur, m_avg = read_metric_pair(m_cur_d, m_avg_d)
-            avg_inner += block_steps
-            use_avg = (_kkt_error(m_avg, norm_b, norm_c, offset) <=
-                       _kkt_error(m_cur, norm_b, norm_c, offset))
-            mlast = m_avg if use_avg else m_cur
-            avg_xy = ((x_avg.clone(), y_avg.clone()) if use_avg
-                      else (state.x_pd.clone(), state.y_pd.clone()))
-        elif dev_restarts:
-            n_windows = max(1, block_steps // base_steps)
-            block_steps = n_windows * base_steps
-            state, ctl, metrics = blocks.windows(
-                state, ctl, n_windows, gamma, base_steps, theta_dev,
-                step_op)
-            mlast, restarts = read_metrics(metrics, ctl)
-        else:
-            state, metrics = blocks.block(state, block_steps, gamma,
-                                          step_op)
-            mlast, _ = read_metrics(metrics)
+        with span(timer, "pdhg.block"):
+            if avg_mode:
+                state, m_cur_d, m_avg_d, x_avg, y_avg = blocks.block_avg(
+                    state, block_steps, step_op)
+                m_cur, m_avg = read_metric_pair(m_cur_d, m_avg_d)
+                avg_inner += block_steps
+                use_avg = (_kkt_error(m_avg, norm_b, norm_c, offset) <=
+                           _kkt_error(m_cur, norm_b, norm_c, offset))
+                mlast = m_avg if use_avg else m_cur
+                avg_xy = ((x_avg.clone(), y_avg.clone()) if use_avg
+                          else (state.x_pd.clone(), state.y_pd.clone()))
+            elif dev_restarts:
+                n_windows = max(1, block_steps // base_steps)
+                block_steps = n_windows * base_steps
+                state, ctl, metrics = blocks.windows(
+                    state, ctl, n_windows, gamma, base_steps, theta_dev,
+                    step_op)
+                mlast, restarts = read_metrics(metrics, ctl)
+            else:
+                state, metrics = blocks.block(state, block_steps, gamma,
+                                              step_op)
+                mlast, _ = read_metrics(metrics)
         total_iters += block_steps
         n_blocks += 1
         blocks_since_ckpt += 1

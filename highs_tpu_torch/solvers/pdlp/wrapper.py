@@ -25,6 +25,7 @@ from ...options import HighsOptions
 from ...ops import linops
 from ...parallel.mesh import make_mesh, parse_mesh_shape
 from ...parallel.shard_ops import make_row_sharded
+from ...utils.timer import span
 from .pdhg import PdhgProblem, PdhgSettings, solve_pdhg
 from .preprocess import preprocess_lp, recover_solution
 from .scaling import scale_problem
@@ -77,10 +78,10 @@ def _pdhg_round(problem, n_pad, m_pad, settings, timer, **kwargs):
     it passes them: the round's seconds under `pdlp_round`, its
     restarts as calls of `pdlp_restart` (their time lies inside the
     round)."""
-    t0 = time.perf_counter()
-    result = solve_pdhg(problem, n_pad, m_pad, settings, **kwargs)
+    with span(timer, "pdlp_round"):
+        result = solve_pdhg(problem, n_pad, m_pad, settings, timer=timer,
+                            **kwargs)
     if timer is not None:
-        timer.add("pdlp_round", time.perf_counter() - t0)
         timer.add("pdlp_restart", 0.0, calls=result.restarts)
     return result
 
@@ -274,7 +275,9 @@ def solve_lp_pdlp(lp: HighsLp, options: HighsOptions,
             info.rel_gap = 0.0
         return status, sol, info
 
-    s = pdlp_problem(lp, options, device)
+    timer = getattr(options, "_timer", None)
+    with span(timer, "pdlp.setup"):
+        s = pdlp_problem(lp, options, device)
     problem, std, dtype, device, mesh = (s.problem, s.std, s.dtype,
                                          s.device, s.mesh)
     n_pad, m_pad, padc, padr = s.n_pad, s.m_pad, s.padc, s.padr
@@ -349,7 +352,6 @@ def solve_lp_pdlp(lp: HighsLp, options: HighsOptions,
         settings.eps_optimal = max(eps, f32_floor)
         settings.ignore_gap = True
 
-    timer = getattr(options, "_timer", None)
     t_all = time.perf_counter()
     result = _pdhg_round(problem, n_pad, m_pad, settings, timer,
                          x0=x0_s, y0=y0_s, offset=std.offset, mesh=mesh,
@@ -401,20 +403,24 @@ def solve_lp_pdlp(lp: HighsLp, options: HighsOptions,
         big_f = float(big)
 
         def kkt(x_bar, y_bar):
-            r = b_p - k_host @ x_bar
-            r_eff = np.where(is_eq_p, r, np.maximum(r, 0.0))
-            rel_p = np.linalg.norm(r_eff * inv_row_p) / (1.0 + norm_b)
-            z = c_p - k_host.T @ y_bar
-            z_pos = np.where(lo_fin_p, np.maximum(z, 0.0), 0.0)
-            z_neg = np.where(up_fin_p, np.minimum(z, 0.0), 0.0)
-            rel_d = (np.linalg.norm((z - z_pos - z_neg) * inv_col_p) /
-                     (1.0 + norm_c))
-            pobj = float(c_p @ x_bar) + std.offset
-            lo_safe = np.where(lo_fin_p, lo_p, 0.0)
-            up_safe = np.where(up_fin_p, up_p, 0.0)
-            dobj = (float(b_p @ y_bar) + float(lo_safe @ z_pos) +
-                    float(up_safe @ z_neg) + std.offset)
-            gap = abs(pobj - dobj) / (1.0 + abs(pobj) + abs(dobj))
+            # the host's f64 oracle, between rounds and inside them
+            # (host_check), timed with the shifted data under
+            # "pdlp.oracle"
+            with span(timer, "pdlp.oracle"):
+                r = b_p - k_host @ x_bar
+                r_eff = np.where(is_eq_p, r, np.maximum(r, 0.0))
+                rel_p = np.linalg.norm(r_eff * inv_row_p) / (1.0 + norm_b)
+                z = c_p - k_host.T @ y_bar
+                z_pos = np.where(lo_fin_p, np.maximum(z, 0.0), 0.0)
+                z_neg = np.where(up_fin_p, np.minimum(z, 0.0), 0.0)
+                rel_d = (np.linalg.norm((z - z_pos - z_neg) * inv_col_p) /
+                         (1.0 + norm_c))
+                pobj = float(c_p @ x_bar) + std.offset
+                lo_safe = np.where(lo_fin_p, lo_p, 0.0)
+                up_safe = np.where(up_fin_p, up_p, 0.0)
+                dobj = (float(b_p @ y_bar) + float(lo_safe @ z_pos) +
+                        float(up_safe @ z_neg) + std.offset)
+                gap = abs(pobj - dobj) / (1.0 + abs(pobj) + abs(dobj))
             return rel_p, rel_d, gap, pobj, dobj, z
 
         # scaled standard-form accumulators from the cold round
@@ -425,15 +431,18 @@ def solve_lp_pdlp(lp: HighsLp, options: HighsOptions,
         while (max(rel_p, rel_d, gap) > eps and rounds < 4 and
                time.perf_counter() - t_all < settings.time_limit):
             cur = max(rel_p, rel_d, gap)
-            b_eff = b_p - k_host @ x_bar
-            c_eff = c_p - k_host.T @ y_bar
-            with np.errstate(invalid="ignore"):
-                lo_eff = np.where(np.isfinite(lo_p), lo_p - x_bar, -big_f)
-                up_eff = np.where(np.isfinite(up_p), up_p - x_bar, big_f)
-            y_lo_eff = np.where(is_eq_p, 0.0, -y_bar)
-            rproblem = problem._replace(
-                b=dev(b_eff), c=dev(c_eff), lo=dev(lo_eff), up=dev(up_eff),
-                y_lo=dev(y_lo_eff))
+            with span(timer, "pdlp.oracle"):
+                b_eff = b_p - k_host @ x_bar
+                c_eff = c_p - k_host.T @ y_bar
+                with np.errstate(invalid="ignore"):
+                    lo_eff = np.where(np.isfinite(lo_p), lo_p - x_bar,
+                                      -big_f)
+                    up_eff = np.where(np.isfinite(up_p), up_p - x_bar,
+                                      big_f)
+                y_lo_eff = np.where(is_eq_p, 0.0, -y_bar)
+                rproblem = problem._replace(
+                    b=dev(b_eff), c=dev(c_eff), lo=dev(lo_eff),
+                    up=dev(up_eff), y_lo=dev(y_lo_eff))
 
             # the delta round terminates on residuals; the true gap
             # (host f64) follows the complementarity error at roughly
@@ -510,13 +519,15 @@ def solve_lp_pdlp(lp: HighsLp, options: HighsOptions,
     info.solve_time = time.perf_counter() - t_all
     info.restarts = total_restarts
 
-    if perm_maps is not None:
-        inv_row, inv_col = perm_maps
-        x_uns, y_uns, z_uns = x_uns[inv_col], y_uns[inv_row], z_uns[inv_col]
-    col_value, row_dual, col_dual = recover_solution(
-        std, x_uns[:n_std], y_uns[:m_std], z_uns[:n_std])
-    row_value = (lp.a_matrix.to_scipy() @ col_value if lp.num_row
-                 else np.zeros(0))
+    with span(timer, "pdlp.recover"):
+        if perm_maps is not None:
+            inv_row, inv_col = perm_maps
+            x_uns, y_uns, z_uns = (x_uns[inv_col], y_uns[inv_row],
+                                   z_uns[inv_col])
+        col_value, row_dual, col_dual = recover_solution(
+            std, x_uns[:n_std], y_uns[:m_std], z_uns[:n_std])
+        row_value = (lp.a_matrix.to_scipy() @ col_value if lp.num_row
+                     else np.zeros(0))
     sol = HighsSolution(
         value_valid=True, dual_valid=True,
         col_value=col_value, col_dual=col_dual,

@@ -12,14 +12,17 @@ with the default options, or the synth50k LP (`utils/gen_synth_lp.py`)
 with solver "hipdlp" (`choose` sends an LP of its size to the IPM) in
 the matrix format `--format` (`--dtype` sets `tpu_dtype`; the default,
 "choose", is float32 with f64 refinement on CUDA); `--solver pdlp` runs
-the average-iterate engine instead.  It splits the run's
-host-clock time into presolve, the PDLP wrapper's host setup (standard
-form, scaling, operator build), each PDHG round (the refinement's host
-KKT oracle runs inside its round), recovery, and the rest of the
-solve, by timing the wrapper's steps from outside.  Then it
-runs 10 restart windows (400 Halpern steps; with `--solver pdlp` one
-average-mode block of 400 steps and its two metric sets) of the cold
-round's problem (`profile_blocks`) as replays of captured CUDA graphs,
+the average-iterate engine instead.  The run goes under
+`torch.profiler`; it prints the run's split from the facade's clocks
+(`getTimer()`): presolve and its rule families, the PDLP wrapper's
+set-up, its PDHG rounds (the power method, the blocks, the graph
+captures), the refinement's host oracle and the recovery, and the share
+of the "highs.solve" span that the spans directly under it cover
+(`solve_cover`).  Then it builds the cold round's problem again (`Highs.presolve()` and
+the wrapper's `pdlp_problem`) and runs 10 restart windows (400 Halpern
+steps; with `--solver pdlp` one average-mode block of 400 steps and its
+two metric sets) of it (`profile_blocks`) as replays of captured CUDA
+graphs,
 as `solve_pdhg` runs them on one card: once for the wall time of a step
 (and once op by op beside it), and once under `torch.profiler`, for the
 device time of a step by kernel (`by_kernel`: the primal and dual step
@@ -41,6 +44,7 @@ import numpy as np
 import torch
 
 from .. import Highs, HighsModelStatus
+from ..options import HighsOptions
 from ..ops import block_csr, onehot_spmv
 from ..solvers.capture import read_counts
 from ..solvers.pdlp import graph, pdhg, wrapper
@@ -71,18 +75,31 @@ def kernel_groups(kernels: dict, device_ms: float) -> dict:
     return out
 
 
-def _timed(module, name, sink):
-    """Replace module.name by a wrapper that appends (seconds, args,
-    result) to sink, syncing the card at the end of each call."""
-    inner = getattr(module, name)
+# the program's spans directly under "highs.solve" on the PDLP route
+SOLVE_PARTS = ("highs.pdlp.setup", "highs.pdlp_round", "highs.pdlp.oracle",
+               "highs.pdlp.recover")
 
-    def run(*args, **kwargs):
-        t0 = time.perf_counter()
-        out = inner(*args, **kwargs)
-        torch.cuda.synchronize()
-        sink.append((time.perf_counter() - t0, args, out))
-        return out
-    setattr(module, name, run)
+
+def solve_cover(prof) -> float:
+    """The share of the run's "highs.solve" span (host events of a
+    stopped profile) that the union of the SOLVE_PARTS spans covers."""
+    from torch.autograd import DeviceType
+    solve, parts = [], []
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() != DeviceType.CPU:
+            continue
+        iv = (ev.start_ns(), ev.end_ns())
+        if ev.name() == "highs.solve":
+            solve.append(iv)
+        elif ev.name() in SOLVE_PARTS:
+            parts.append(iv)
+    covered, end = 0, None
+    for s, e in sorted(parts):
+        s = s if end is None else max(s, end)
+        if e > s:
+            covered += e - s
+            end = e
+    return covered / sum(e - s for s, e in solve)
 
 
 def _start(problem, dtype, device):
@@ -234,40 +251,38 @@ def main(argv=None) -> int:
           else synth_lp())
     gen_s = time.perf_counter() - t0
 
-    steps = {name: [] for name in ("preprocess_lp", "scale_problem",
-                                   "solve_pdhg", "recover_solution")}
-    for name, sink in steps.items():
-        _timed(wrapper, name, sink)
-    build = []
-    _timed(wrapper.linops, "from_scipy", build)
-
     h = Highs(device=device)
     h.setOptionValue("output_flag", False)
-    h.setOptionValue("tpu_dtype", args.dtype)
-    h.setOptionValue("tpu_matrix_format", args.format)
     solver = args.solver or ("hipdlp" if args.lp == "synth50k"
                              else "choose")
-    h.setOptionValue("solver", solver)
+    opts = HighsOptions()
+    for key, val in (("tpu_dtype", args.dtype),
+                     ("tpu_matrix_format", args.format),
+                     ("solver", solver)):
+        h.setOptionValue(key, val)
+        opts.set(key, val)
     h.passModel(lp)
     block_csr.LAUNCHES = 0
     onehot_spmv.LAUNCHES["onehot_spmv"] = 0
-    t0 = time.perf_counter()
-    h.run()
-    torch.cuda.synchronize()
-    run_s = time.perf_counter() - t0
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        h.run()
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
     launches = {"block_csr_spmv": block_csr.LAUNCHES,
                 "onehot_spmv": onehot_spmv.LAUNCHES["onehot_spmv"]}
     rd = h.getRunData()
-    rounds = [{"seconds": s, "iterations": out.iterations,
-               "restarts": out.restarts, "status": out.status.name}
-              for s, _, out in steps["solve_pdhg"]]
-    pdhg_s = sum(r["seconds"] for r in rounds)
-    iters = sum(r["iterations"] for r in rounds)
-    setup_s = (sum(s for s, _, _ in steps["preprocess_lp"]) +
-               sum(s for s, _, _ in steps["scale_problem"]) +
-               sum(s for s, _, _ in build))
-    recover_s = sum(s for s, _, _ in steps["recover_solution"])
-    problem = steps["solve_pdhg"][0][1][0]
+    timer = h.getTimer()
+    iters = h.getInfo().pdlp_iteration_count
+    pdhg_s = timer.read("pdlp_round")
+    fresh = Highs(device=device)  # its presolve leaves h's clocks whole
+    fresh.setOptionValue("output_flag", False)
+    fresh.passModel(lp)
+    fresh.presolve()
+    problem = wrapper.pdlp_problem(fresh.getPresolvedLp(), opts,
+                                   device).problem
     dtype = problem.c.dtype
 
     report = {
@@ -281,9 +296,12 @@ def main(argv=None) -> int:
         "generate_s": gen_s, "run_s": run_s,
         "presolve_s": rd.presolve_time, "solve_s": rd.solve_time,
         "postsolve_s": rd.postsolve_time,
-        "pdlp_setup_s": setup_s, "pdhg_rounds_s": pdhg_s,
-        "other_solve_s": rd.solve_time - setup_s - pdhg_s - recover_s,
-        "recover_s": recover_s, "rounds": rounds,
+        "pdlp_setup_s": timer.read("pdlp.setup"), "pdhg_rounds_s": pdhg_s,
+        "oracle_s": timer.read("pdlp.oracle"),
+        "recover_s": timer.read("pdlp.recover"),
+        # every clock and counter of the run, as a table
+        "clocks": timer.report(),
+        "solve_cover": solve_cover(prof),
         "ms_per_iteration": pdhg_s * 1e3 / max(1, iters),
     }
     report["windows"] = profile_blocks(

@@ -7,12 +7,24 @@ FactorTimer, MipTimer, HiPdlpTimer).  These clocks time the host-visible
 phases (presolve, solve dispatch, postsolve, IO) the way the reference's
 named clocks do; a solver may add its own phase times to them (the IPM's
 Newton phases, timed on the device by CUDA events).
+
+While a torch profiler runs, each scope is also a
+`torch.profiler.record_function` span named "highs.<clock>", on the
+profiler's clock, around the same interval; `span` gives the same span
+where there is no registry (the batch, `passModel`).  With no profiler
+running, a scope tests one flag and reads the host clock twice.  Plain
+counters (`count`, `counter`) sit beside the clocks.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
 from typing import Dict, List, Optional
+
+import torch
+from torch.autograd import profiler as _autograd_profiler
+
+SPAN_PREFIX = "highs."
 
 
 @dataclasses.dataclass
@@ -32,11 +44,13 @@ class HighsTimer:
 
     def __init__(self):
         self._clocks: Dict[str, _Clock] = {}
+        self._counts: Dict[str, int] = {}
         self._t0 = time.perf_counter()
 
     # -- whole-run wall clock --------------------------------------------
     def reset(self):
         self._clocks.clear()
+        self._counts.clear()
         self._t0 = time.perf_counter()
 
     def read_run_highs_clock(self) -> float:
@@ -54,12 +68,12 @@ class HighsTimer:
         if c._start is None:
             c._start = time.perf_counter()
 
-    def stop(self, name: str):
+    def stop(self, name: str, calls: int = 1):
         c = self._clocks.get(name)
         if c is None or c._start is None:
             return
         c.total += time.perf_counter() - c._start
-        c.num_calls += 1
+        c.num_calls += calls
         c._start = None
 
     def add(self, name: str, seconds: float, calls: int = 1):
@@ -82,34 +96,74 @@ class HighsTimer:
         c = self._clocks.get(name)
         return c.num_calls if c else 0
 
-    class _Scope:
-        def __init__(self, timer: "HighsTimer", name: str):
-            self._timer = timer
-            self._name = name
-
-        def __enter__(self):
-            self._timer.start(self._name)
-            return self
-
-        def __exit__(self, *exc):
-            self._timer.stop(self._name)
-            return False
-
-    def scope(self, name: str) -> "_Scope":
+    def scope(self, name: str) -> "Scope":
         """Context-manager clock: `with timer.scope('presolve'): ...`"""
-        return HighsTimer._Scope(self, name)
+        return Scope(self, name)
+
+    # -- counters ----------------------------------------------------------
+    def count(self, name: str, n: int = 1):
+        self._counts[name] = self._counts.get(name, 0) + n
+
+    def counter(self, name: str) -> int:
+        return self._counts.get(name, 0)
 
     # -- reporting (reference: reportClockList-style table) ----------------
-    def report(self, min_fraction: float = 0.0) -> List[str]:
-        """Render a clock table; rows below min_fraction of total are
-        dropped (like the reference's tolerance-per-percent report)."""
+    def report(self, min_fraction: float = 0.0,
+               prefix: str = "") -> List[str]:
+        """Render a clock table, then the counters; rows below
+        min_fraction of total are dropped (like the reference's
+        tolerance-per-percent report).  With `prefix`, only the clocks
+        and counters whose names start with it, and no total."""
         total = self.read_run_highs_clock()
         lines = [f"{'Clock':<32}{'Calls':>8}{'Time(s)':>12}{'%':>7}"]
         for c in sorted(self._clocks.values(), key=lambda c: -c.total):
             frac = c.total / total if total > 0 else 0.0
-            if frac < min_fraction:
+            if frac < min_fraction or not c.name.startswith(prefix):
                 continue
             lines.append(f"{c.name:<32}{c.num_calls:>8}"
                          f"{c.total:>12.4f}{100.0 * frac:>6.1f}%")
-        lines.append(f"{'run':<32}{'':>8}{total:>12.4f}{100.0:>6.1f}%")
+        if not prefix:
+            lines.append(f"{'run':<32}{'':>8}{total:>12.4f}{100.0:>6.1f}%")
+        counts = sorted(k for k in self._counts if k.startswith(prefix))
+        if counts:
+            lines.append(f"{'Counter':<32}{'Count':>8}")
+            lines += [f"{k:<32}{self._counts[k]:>8}" for k in counts]
         return lines
+
+
+class Scope:
+    """One clock of a registry (or none) over a `with` block, and the
+    span "highs.<name>" around it while a torch profiler runs.  `calls`,
+    set inside the block, is what the clock counts for it (default 1)."""
+
+    __slots__ = ("_timer", "_name", "_span", "calls")
+
+    def __init__(self, timer: Optional[HighsTimer], name: str):
+        self._timer = timer
+        self._name = name
+        self._span = None
+        self.calls = 1
+
+    def __enter__(self):
+        # the profiler's own flag: a `record_function` costs microseconds
+        # even with no profiler running
+        if _autograd_profiler._is_profiler_enabled:
+            self._span = torch.profiler.record_function(
+                SPAN_PREFIX + self._name)
+            self._span.__enter__()
+        if self._timer is not None:
+            self._timer.start(self._name)
+        return self
+
+    def __exit__(self, *exc):
+        if self._timer is not None:
+            self._timer.stop(self._name, self.calls)
+        if self._span is not None:
+            self._span.__exit__(*exc)
+            self._span = None
+        return False
+
+
+def span(timer: Optional[HighsTimer], name: str) -> Scope:
+    """`timer.scope(name)`, or the span alone where `timer` is None."""
+    return Scope(timer, name)
