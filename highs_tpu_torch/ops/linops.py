@@ -436,6 +436,31 @@ def _sparse_csr(csr: sp.csr_matrix, dtype, device) -> torch.Tensor:
             size=csr.shape)
 
 
+def dense_from_csc(start, index, value, shape, device) -> torch.Tensor:
+    """A dense f64 matrix of `shape` on `device` from CSC arrays over its
+    leading len(start) - 1 columns, built there: only the nonzeros cross
+    to the device, and the host never holds the matrix dense.  The host
+    sums duplicates first, so the scatter writes each entry once (no
+    atomics: the same bits on every run and device)."""
+    start = np.asarray(start, dtype=np.int64)
+    out = torch.zeros(shape, dtype=torch.float64, device=device)
+    nnz = int(start[-1]) if len(start) > 1 else 0
+    if not nnz:
+        return out
+    csc = sp.csc_matrix(
+        (np.asarray(value[:nnz], dtype=np.float64), np.asarray(index[:nnz]),
+         start), shape=(shape[0], len(start) - 1), copy=True)
+    csc.sum_duplicates()
+    nnz = csc.nnz  # from the host: nothing waits on the device
+    cols = torch.repeat_interleave(
+        torch.arange(csc.shape[1], device=device),
+        torch.as_tensor(np.diff(csc.indptr).astype(np.int64), device=device),
+        output_size=nnz)
+    rows = torch.as_tensor(csc.indices.astype(np.int64), device=device)
+    out.index_put_((rows, cols), torch.as_tensor(csc.data, device=device))
+    return out
+
+
 def from_scipy_bcoo(mat: sp.spmatrix, dtype=torch.float64,
                     device=None) -> BcooMatrix:
     device = resolve_device(device)

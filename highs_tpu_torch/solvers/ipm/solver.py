@@ -13,7 +13,8 @@ contributes only a diagonal on inequality rows).  Four routes:
 
   "chol"  K Theta K' formed dense in f64 (`torch.matmul`, the FP64
           tensor cores on an H100) and factored by a dense Cholesky, on
-          the solver's device;
+          the solver's device, where the dense K is scattered from its
+          scaled nonzeros (`scaled_dense_k`);
   "cg"    Jacobi-preconditioned conjugate gradients, matrix-free in M;
   "ldl"   M is assembled sparse on the host from a scipy copy of K and
           factored there, as in the JAX package: the banded f32
@@ -52,7 +53,7 @@ from ...device import resolve_device
 from ...models.lp import HighsLp
 from ...models.solution import HighsSolution
 from ...options import HighsOptions
-from ...ops.linops import _sparse_csr
+from ...ops.linops import _sparse_csr, dense_from_csc
 from ...utils.timer import span
 from ..pdlp.preprocess import preprocess_lp, recover_solution
 from ..pdlp.wrapper import _solve_bound_lp
@@ -142,6 +143,10 @@ SOLVES = {"cuda": 0, "cpu": 0}
 HOST_FACTORS = {"superlu": 0, "ldl": 0}
 # IPM solves by the Newton route their iterations ran
 ROUTES = {"chol": 0, "cg": 0, "ldl": 0, "dense_m": 0}
+# dense K built on the device from its nonzeros (`scaled_dense_k`), by
+# device type: one a solve on the "chol" route and the dense "cg" branch,
+# one a batched node evaluator
+DENSE_K = {"cuda": 0, "cpu": 0}
 
 # persistent factor handles of the "ldl" route, keyed by the sparsity
 # pattern of K (`_pattern_key`): the normal matrix's pattern is constant
@@ -743,16 +748,6 @@ class IpmRunInfo:
     newton: str = ""  # the route run: chol, cg, ldl or dense_m
 
 
-def _geo_scale_dense(mat: np.ndarray, axis: int) -> np.ndarray:
-    """Geometric-mean equilibration factors of |mat| along `axis`."""
-    amax = mat.max(axis=axis, initial=0.0)
-    amin = np.where(mat > 0, mat, np.inf).min(axis=axis, initial=np.inf)
-    ok = (amax > 0) & np.isfinite(amin)
-    with np.errstate(invalid="ignore"):
-        return np.where(ok, 1.0 / np.sqrt(np.where(ok, amax * amin, 1.0)),
-                        1.0)
-
-
 def _geo_scale_sparse(mat_csr: sp.csr_matrix) -> np.ndarray:
     """Geometric-mean equilibration factors of the rows of a CSR matrix."""
     absd = np.abs(mat_csr.data)
@@ -771,6 +766,31 @@ def _geo_scale_sparse(mat_csr: sp.csr_matrix) -> np.ndarray:
             out = np.where(ok, 1.0 / np.sqrt(
                 np.where(ok, amax * amin, 1.0)), 1.0)
     return out
+
+
+def _scale_k(a: sp.spmatrix):
+    """Geometric-mean equilibration of K, from its nonzeros: the row
+    factors, the column factors of the row-scaled K, and the scaled K,
+    each value (row_s[i] * a_ij) * col_s[j] in f64, as CSC."""
+    a_csr = sp.csr_matrix(a, dtype=np.float64, copy=True)
+    a_csr.sum_duplicates()
+    row_s = _geo_scale_sparse(a_csr)
+    a_rs = (sp.diags(row_s) @ a_csr).tocsc()
+    col_s = _geo_scale_sparse(a_rs.T.tocsr())
+    return row_s, col_s, (a_rs @ sp.diags(col_s)).tocsc()
+
+
+def scaled_dense_k(a: sp.spmatrix, device):
+    """The dense routes' K (the "chol" route, the dense "cg" branch, the
+    MIP's batched node rounds): the scale factors and the scaled K's
+    nonzeros on the host (`_scale_k`), the dense K scattered from them
+    on `device` (`dense_from_csc`), so the host never holds K dense.
+    Returns row_s, col_s, the scaled K as host CSC and the dense K."""
+    row_s, col_s, a_sc = _scale_k(a)
+    k = dense_from_csc(a_sc.indptr, a_sc.indices, a_sc.data, a_sc.shape,
+                       device)
+    DENSE_K[torch.device(device).type] += 1
+    return row_s, col_s, a_sc, k
 
 
 def _host_metrics(metrics: IpmMetrics) -> IpmMetrics:
@@ -840,19 +860,13 @@ def solve_lp_ipm_native(lp: HighsLp, options: HighsOptions, log=None,
             sparse_mode = newton in ("ldl", "dense_m") or (
                 newton == "cg" and not dense_ok)
 
-            # geometric-mean equilibration for numerical stability
+            # geometric-mean equilibration for numerical stability; the
+            # dense routes build K on the device from its nonzeros
             if sparse_mode:
-                a_csr = std.a.tocsr()
-                row_s = _geo_scale_sparse(a_csr)
-                a_rs = (sp.diags(row_s) @ a_csr).tocsc()
-                col_s = _geo_scale_sparse(a_rs.T.tocsr())
-                a_scaled = (a_rs @ sp.diags(col_s)).tocsr()
+                row_s, col_s, a_scaled = _scale_k(std.a)
+                a_dev = sparse_k(a_scaled, device)
             else:
-                a_np = std.a.toarray()
-                row_s = _geo_scale_dense(np.abs(a_np), 1)
-                col_s = _geo_scale_dense(np.abs(row_s[:, None] * a_np), 0)
-                a_scaled = row_s[:, None] * a_np * col_s[None, :]
-                del a_np
+                row_s, col_s, a_scaled, a_dev = scaled_dense_k(std.a, device)
             b_scaled = row_s * std.b
             c_scaled = std.c * col_s
 
@@ -882,7 +896,7 @@ def solve_lp_ipm_native(lp: HighsLp, options: HighsOptions, log=None,
             def dev(v):
                 return torch.as_tensor(v, dtype=F64, device=device)
             problem = IpmProblem(
-                a=sparse_k(a_scaled, device) if sparse_mode else dev(a_scaled),
+                a=a_dev,
                 b=dev(b_scaled), c=dev(c_scaled), slack_mask=dev(is_ineq),
                 lo=dev(np.where(np.isfinite(lo), lo, -big)),
                 up=dev(np.where(np.isfinite(up), up, big)),

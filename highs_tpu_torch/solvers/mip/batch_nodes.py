@@ -43,8 +43,8 @@ import torch
 
 from ...device import resolve_device
 from ...models.lp import HighsLp
-from ..ipm.solver import (IpmProblem, IpmSettings, IpmState,
-                          _geo_scale_dense, ipm_step, starting_point)
+from ..ipm.solver import (IpmProblem, IpmSettings, IpmState, ipm_step,
+                          scaled_dense_k, starting_point)
 from ..capture import counted_capture, counted_replay, cuda_graph
 from ..pdlp.preprocess import preprocess_lp, recover_solution
 
@@ -103,16 +103,13 @@ class BatchNodeEvaluator:
         self.std = std
         m, n_std = std.num_row, std.num_col
         self.m, self.n_std = m, n_std
-        a_np = std.a.toarray()
-        self.row_s = _geo_scale_dense(np.abs(a_np), 1)
-        self.col_s = _geo_scale_dense(np.abs(self.row_s[:, None] * a_np), 0)
-        a_scaled = self.row_s[:, None] * a_np * self.col_s[None, :]
+        self.row_s, self.col_s, _, k = scaled_dense_k(std.a, self.device)
         self.b_scaled = self.row_s * std.b
         self.c_scaled = std.c * self.col_s
         self.is_ineq = (np.arange(m) >= std.num_eq).astype(np.float64)
 
         self._shared = dict(
-            a=self._dev(a_scaled), b=self._dev(self.b_scaled),
+            a=k, b=self._dev(self.b_scaled),
             c=self._dev(self.c_scaled), slack_mask=self._dev(self.is_ineq),
             norm_c=self._dev(np.linalg.norm(self.c_scaled)),
             norm_b=self._dev(np.linalg.norm(self.b_scaled)))

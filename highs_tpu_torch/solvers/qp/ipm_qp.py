@@ -37,6 +37,7 @@ from ...constants import HessianFormat, HighsModelStatus
 from ...device import resolve_device
 from ...models.lp import HighsHessian, HighsModel
 from ...models.solution import HighsSolution
+from ...ops.linops import dense_from_csc
 from ...options import HighsOptions
 from ..ipm.solver import (EPS, F64, IpmProblem, IpmRunInfo, PhaseClock,
                           cho_solve, cholesky, starting_point)
@@ -222,25 +223,6 @@ def qp_ipm_step(problem: QpIpmProblem, state: QpIpmState, regs,
         mu=gap2 / n_fin, primal_obj=pobj, comp_gap=gap2,
         alpha_p=alpha, alpha_d=alpha)
     return new_state, metrics
-
-
-def dense_from_csc(start, index, value, shape, device) -> torch.Tensor:
-    """A dense f64 matrix on `device` from CSC arrays (duplicates
-    summed), built there: the host never holds it dense."""
-    start = torch.as_tensor(np.asarray(start), dtype=torch.int64,
-                            device=device)
-    nnz = int(start[-1]) if len(start) else 0
-    out = torch.zeros(shape, dtype=F64, device=device)
-    if nnz:
-        cols = torch.repeat_interleave(
-            torch.arange(len(start) - 1, device=device), start.diff(),
-            output_size=nnz)
-        rows = torch.as_tensor(np.asarray(index[:nnz]), dtype=torch.int64,
-                               device=device)
-        out.index_put_((rows, cols), torch.as_tensor(
-            np.asarray(value[:nnz]), dtype=F64, device=device),
-            accumulate=True)
-    return out
 
 
 def dense_hessian(hessian: HighsHessian, n_std: int, sense: float,

@@ -18,7 +18,10 @@ counterpart:
   to 1e-8 relative;
 - the native LDL' through the port's binding, the classification of
   infeasible and unbounded LPs, and iCrash (x and the multipliers to
-  1e-8).
+  1e-8);
+- the dense routes' scale factors and K, built from K's nonzeros,
+  against the dense host formula (kept here) bit for bit, and their
+  builds as `DENSE_K` counts them.
 
 The dense route on the card against the CPU is a card-only case; it
 skips without one.  On a machine with a card but with JAX on the GPU,
@@ -443,6 +446,124 @@ def test_dense_factor_on_the_card_matches_the_host_ldl(cuda_device):
     assert abs(info.iterations - hinfo.iterations) <= 1
     assert abs(info.primal_obj - hinfo.primal_obj) <= \
         1e-8 * max(1.0, abs(hinfo.primal_obj))
+
+
+def _host_scaled_k(a: sp.spmatrix):
+    """The dense route's scaling as the host once built it: K dense,
+    geometric-mean factors of its rows, then of the row-scaled columns,
+    and row_s[:, None] * K * col_s[None, :]."""
+    a_np = a.toarray()
+
+    def geo(mat, axis):
+        amax = mat.max(axis=axis, initial=0.0)
+        amin = np.where(mat > 0, mat, np.inf).min(axis=axis, initial=np.inf)
+        ok = (amax > 0) & np.isfinite(amin)
+        with np.errstate(invalid="ignore"):
+            return np.where(ok, 1.0 / np.sqrt(np.where(ok, amax * amin, 1.0)),
+                            1.0)
+    row_s = geo(np.abs(a_np), 1)
+    col_s = geo(np.abs(row_s[:, None] * a_np), 0)
+    return row_s, col_s, row_s[:, None] * a_np * col_s[None, :]
+
+
+def _row_kinds_lp(seed=3, m=80, n=120):
+    """Equality, ranged, <= and >= rows: the standard form gains slack
+    columns for the ranged rows and flips the signs of the <= rows."""
+    rng = np.random.default_rng(seed)
+    a = sp.random(m, n, density=0.08, random_state=rng, format="csc",
+                  data_rvs=rng.standard_normal)
+    r = a @ rng.uniform(0, 1, n)
+    kind = np.arange(m) % 4
+    rl = np.where(kind == 2, -np.inf, r - np.where(kind == 1, 1.0, 0.5))
+    rl = np.where(kind == 0, r, rl)
+    ru = np.where(kind == 3, np.inf, r + np.where(kind == 1, 1.0, 0.5))
+    ru = np.where(kind == 0, r, ru)
+    return lp_from_numpy(dict(
+        num_col=n, num_row=m, col_cost=rng.uniform(-1, 1, n),
+        col_lower=np.zeros(n), col_upper=np.full(n, 3.0), row_lower=rl,
+        row_upper=ru, a_start=a.indptr, a_index=a.indices, a_value=a.data))
+
+
+def _empty_lines_k():
+    """The standard form of an LP with an empty row and an empty column,
+    with an explicitly stored zero added to K."""
+    rng = np.random.default_rng(5)
+    a = sp.random(30, 40, density=0.15, random_state=rng, format="lil")
+    a[7, :] = 0.0
+    a[:, 11] = 0.0
+    a = a.tocsc()
+    lp = lp_from_numpy(dict(
+        num_col=40, num_row=30, col_cost=rng.uniform(0.1, 1, 40),
+        col_lower=np.zeros(40), col_upper=np.ones(40),
+        row_lower=np.zeros(30), row_upper=np.full(30, np.inf),
+        a_start=a.indptr, a_index=a.indices, a_value=a.data))
+    k = preprocess_lp(lp).a.tocsr()
+    # the zero goes into row 0, in a column that row holds nothing in,
+    # other than the empty one
+    j = np.setdiff1d(np.arange(40),
+                     np.append(k.indices[k.indptr[0]:k.indptr[1]], 11))[0]
+    coo = k.tocoo()
+    return sp.csr_matrix((np.append(coo.data, 0.0),
+                          (np.append(coo.row, 0), np.append(coo.col, j))),
+                         shape=k.shape)
+
+
+def _standard_k(case):
+    if case == "synth240":
+        return preprocess_lp(synth_lp(240, 2000, seed=7)).a
+    if case == "row_kinds":
+        lp = _row_kinds_lp()
+        std = preprocess_lp(lp)
+        assert std.num_col > lp.num_col  # slack columns
+        assert (lp.row_lower == -np.inf).any()  # sign flips
+        return std.a
+    k = _empty_lines_k()
+    assert (np.diff(k.indptr) == 0).any()  # the empty row
+    assert (np.diff(k.tocsc().indptr) == 0).any()  # the empty column
+    assert (k.data == 0.0).any()  # the stored zero
+    return k
+
+
+@pytest.mark.parametrize("case", ["synth240", "row_kinds", "empty_lines"])
+def test_dense_k_from_nonzeros_is_the_host_formula(case):
+    """The dense routes' scale factors and K, built from the nonzeros
+    (K scattered on the device), are the host formula's bit for bit."""
+    a = _standard_k(case)
+    want_r, want_c, want_k = _host_scaled_k(a)
+    row_s, col_s, a_sc, k = solver.scaled_dense_k(a, "cpu")
+    assert np.array_equal(row_s, want_r)
+    assert np.array_equal(col_s, want_c)
+    assert k.dtype == torch.float64 and k.device.type == "cpu"
+    assert torch.equal(k, torch.as_tensor(want_k))
+    assert np.array_equal(a_sc.toarray(), want_k)
+
+
+def test_dense_k_on_the_card_is_the_cpu_build(cuda_device):
+    for case in ("synth240", "row_kinds", "empty_lines"):
+        a = _standard_k(case)
+        on_card = solver.scaled_dense_k(a, cuda_device)[3]
+        assert on_card.device.type == "cuda"
+        assert torch.equal(on_card.cpu(), solver.scaled_dense_k(a, "cpu")[3])
+
+
+@pytest.mark.parametrize("route,builds", [
+    ("chol", 1), ("cg", 1), ("ldl", 0), ("dense_m", 0), ("batch_nodes", 1)])
+def test_dense_k_counts_its_builds(route, builds):
+    """`DENSE_K` counts one build a dense-route solve ("chol", the dense
+    "cg" branch) and one a batched node evaluator, none on the sparse
+    routes."""
+    from highs_tpu_torch.solvers.mip.batch_nodes import BatchNodeEvaluator
+    lp = _mixed_lp(seed=2, m=40, n=60)
+    before = dict(solver.DENSE_K)
+    if route == "batch_nodes":
+        BatchNodeEvaluator(lp, device="cpu")
+    else:
+        opt = "cholesky" if route == "chol" else route
+        st, _, info = solver.solve_lp_ipm_native(
+            lp, _options(tpu_ipm_newton=opt), device="cpu")
+        assert int(st) == int(HighsModelStatus.kOptimal)
+        assert info.newton == route
+    assert solver.DENSE_K == dict(before, cpu=before["cpu"] + builds)
 
 
 def _cover_lp(nrows, ncols, seed=0):
