@@ -14,7 +14,7 @@ LPs one precision below the configuration's, or the program's own
 option for it), judged the same way: it has to come out not correct.
 Each reading is printed as one JSON line (and written to `--out`): the
 seed, the base seeds, whether it is the control, `correct`, the
-numbers compared and each answer's status and KKT measures. The
+numbers compared and each answer's status and its judge's measures. The
 benchmark's runs never run this; it is how the limits in PERF.md were
 read.
 """
@@ -62,7 +62,7 @@ def reading(cell: harness.Cell, bases: harness.Bases, seed: int, device,
             "bases": sorted({a["base"] for a in run.judged}),
             "correct": harness.is_correct(checks, failed),
             "seconds": rec["seconds"], "route": rec["route"],
-            "worst": checks["kkt_worst"]["value"],
+            "worst": checks[cell.judge.CHECK]["value"],
             "checks": {k: c["value"] for k, c in checks.items()},
             "answers": run.judged}
 
@@ -112,9 +112,9 @@ def main(argv=None) -> int:
             vals = [r["worst"] for r in got]
             print(f"{'control' if kind else 'sound'}: {len(vals)} seeds, "
                   f"correct {sum(r['correct'] for r in got)} of "
-                  f"{len(got)}, kkt_worst from {min(vals):.4e} to "
-                  f"{max(vals):.4e} (limit "
-                  f"{cell.config['kkt_tolerance']:g})", file=sys.stderr)
+                  f"{len(got)}, {cell.judge.CHECK} from {min(vals):.4e} "
+                  f"to {max(vals):.4e} (limit "
+                  f"{cell.judge.limit(cell.config):g})", file=sys.stderr)
     return 0
 
 

@@ -3,9 +3,9 @@
 A cell (an entry of `workloads`) names a configuration and a traffic
 mix; the harness finds everything else by name:
 
-- `configs/<config>.json`: the LP family, its generator
-  (`generators/<generator>.py`), the options it runs with and the KKT
-  tolerance it states;
+- `configs/<config>.json`: the problem family, its generator
+  (`generators/<generator>.py`), the options it runs with, the judge
+  of its answers (`judges/<judge>.py`) and the limit the judge reads;
 - `traffic/<traffic>.json`: the entry (`entries/<entry>.py`), the
   members of a call (sizes and the pool of base seeds each draws from),
   the options the user asks for, the route the solves must take and the
@@ -25,7 +25,11 @@ model) lies outside the timed call. The window starts calls until their
 timed total reaches the run's seconds; every call it starts runs to its
 end. The window keeps each call's answers, not its LPs: once it has
 closed, every LP is drawn again from (seed, call index) and every
-answer is judged by `reference.kkt`.
+answer is judged by the configuration's judge: `CHECK`, the name of
+the number compared; `limit(config)`, its limit; `measure(problem,
+answer, config)`, an answer's measures by name; `worst(measures)`, the
+number compared of one answer. The harness knows nothing of the problem
+type beyond the judge's name.
 """
 from __future__ import annotations
 
@@ -39,13 +43,14 @@ import time
 
 import numpy as np
 
-from lpbench import reference
 from lpbench.trace import Trace, traced
 
 HERE = pathlib.Path(__file__).resolve().parent
 ROOT = HERE.parent
 # modules that nothing a run loads may have as its top-level name
 FORBIDDEN = ("jax", "jaxlib", "flax", "highs_tpu")
+# the numbers `judge` compares besides the judge's own `CHECK`, in order
+OWN_CHECKS = ("not_optimal", "missing", "off_route")
 
 
 def forbidden_modules(modules=None) -> list:
@@ -81,6 +86,15 @@ class Cell:
             f"lpbench.entries.{traffic['entry']}")
         self.generator = importlib.import_module(
             f"lpbench.generators.{config['generator']}")
+        if "judge" not in config:
+            raise KeyError(f"configuration {config['name']!r} names no "
+                           "judge")
+        self.judge = importlib.import_module(
+            f"lpbench.judges.{config['judge']}")
+        if self.judge.CHECK in OWN_CHECKS:
+            raise ValueError(f"judge {config['judge']!r} names its check "
+                             f"{self.judge.CHECK!r}, one of the harness's "
+                             "own")
 
     def options(self) -> dict:
         """The options of the timed calls: the configuration's, then the
@@ -182,7 +196,7 @@ class Run:
         self.build_s = 0.0
         self.timed_s = 0.0
         self.trace = None
-        self.judged = []  # each answer's KKT measures, once judged
+        self.judged = []  # each answer's measures, once judged
 
     @property
     def lps(self) -> int:
@@ -251,10 +265,11 @@ def window(cell: Cell, run: Run, bases: Bases, seed: int, seconds: float,
 
 
 def judge(cell: Cell, run: Run, bases: Bases, seed: int, log) -> tuple:
-    """Every answer of the window against the reference, each LP drawn
-    again from (seed, call index): (the numbers compared, each beside
-    its limit; the count of LPs that failed)."""
-    limit = float(cell.config["kkt_tolerance"])
+    """Every answer of the window by the cell's judge, each problem
+    drawn again from (seed, call index): (the numbers compared, the
+    judge's first, each beside its limit; the count of problems that
+    failed)."""
+    limit = cell.judge.limit(cell.config)
     want_route = cell.traffic.get("route")
     worst = 0.0
     not_optimal = missing = off_route = failed = 0
@@ -268,21 +283,21 @@ def judge(cell: Cell, run: Run, bases: Bases, seed: int, log) -> tuple:
         missing += max(0, len(lps) - len(answers))
         failed += max(0, len(lps) - len(answers))
         for (lp, p), ans in zip(made, answers):
-            meas = reference.kkt(lp, ans["x"], ans["y"], ans["objective"])
+            meas = cell.judge.measure(lp, ans, cell.config)
             run.judged.append({"call": rec["index"], "base": p["seed"],
                                "status": ans["status"], **meas})
-            w = reference.worst(meas)
+            w = cell.judge.worst(meas)
             worst = max(worst, w)
             not_optimal += int(not ans["optimal"])
             ok = ans["optimal"] and w <= limit and not bad_route
             failed += int(not ok)
-            log(f"call {rec['index']}: {ans['status']} kkt "
+            log(f"call {rec['index']}: {ans['status']} "
+                f"{cell.config['judge']} "
                 + " ".join(f"{k} {v:.3e}" for k, v in meas.items())
                 + f" objective {ans['objective']!r}")
-    checks = {"kkt_worst": {"value": worst, "limit": limit},
-              "not_optimal": {"value": not_optimal, "limit": 0},
-              "missing": {"value": missing, "limit": 0},
-              "off_route": {"value": off_route, "limit": 0}}
+    own = dict(zip(OWN_CHECKS, (not_optimal, missing, off_route)))
+    checks = {cell.judge.CHECK: {"value": worst, "limit": limit},
+              **{k: {"value": v, "limit": 0} for k, v in own.items()}}
     return checks, failed
 
 

@@ -12,37 +12,31 @@ if str(ROOT) not in sys.path:
 
 
 # each cell cut to a size a CPU test holds, with the route it takes there
-# (the CPU runs no graphs and counts no kernel launches)
-TINY = {
-    "block_lp.solve64k": ({"members": [{"nblocks": 2, "seed": 2024}],
-                           "options": {"solver": "hipdlp",
-                                       "tpu_matrix_format": "blockcsr"}},
-                          "pdlp"),
-    "synth_lp.solve50k": ({"members": [{"m": 300, "n": 300, "seed": 42}]},
-                          "pdlp"),
-    "synth_lp.batch16": ({"members": [{"m": 100 + 4 * j, "n": 100 + 4 * j,
-                                       "seed": j} for j in range(4)]},
-                         "batch"),
-    "synth_lp.ipm20k": ({"members": [{"m": 200, "n": 1600, "seed": 42}],
-                         "options": {"solver": "ipm",
-                                     "run_crossover": "off"}},
-                        "ipm+chol"),
-}
+# (the CPU runs no graphs and counts no kernel launches): `tiny/<cell>.json`
+# holds its members, the options it adds and the route
+TINY = pathlib.Path(__file__).resolve().parent / "tiny"
+
+
+def tiny_names() -> list:
+    """The cells that have a CPU cut, by the files under `tiny/`."""
+    return sorted(p.stem for p in TINY.glob("*.json"))
 
 
 @pytest.fixture
 def tiny_cell():
-    """A factory: the cell `name` of BENCHMARK.json cut to TINY's size,
-    its warm-up the same members, its options updated by `options`."""
+    """A factory: the cell `name` of BENCHMARK.json cut to its
+    `tiny/<name>.json`, its warm-up the same members, its options
+    updated by `options`."""
     from lpbench import harness
 
     def make(name, options=None):
         cell = harness.load_cell(name)
-        traffic, route = TINY[name]
+        tiny = harness.load_json(TINY / f"{name}.json")
         opts = {**cell.traffic.get("options", {}),
-                **traffic.get("options", {}), **(options or {})}
-        cell.traffic.update(traffic, options=opts, route=route,
-                            warm_up={"members": traffic["members"]})
+                **tiny.get("options", {}), **(options or {})}
+        cell.traffic.update(members=tiny["members"], options=opts,
+                            route=tiny["route"],
+                            warm_up={"members": tiny["members"]})
         return cell
     return make
 

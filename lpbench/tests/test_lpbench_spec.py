@@ -30,7 +30,13 @@ def test_workload_resolves_by_name(name):
     for part in ("prepare", "call", "finish"):
         assert callable(getattr(cell.entry, part))
     assert cell.members(cell.traffic) and cell.members(cell.traffic["warm_up"])
-    assert cell.config["kkt_tolerance"] > 0
+    # the configuration names its judge, which states a positive limit
+    assert cell.judge.__name__ == f"lpbench.judges.{cell.config['judge']}"
+    assert isinstance(cell.judge.CHECK, str) and NAME.match(cell.judge.CHECK)
+    assert cell.judge.CHECK not in harness.OWN_CHECKS
+    assert cell.judge.limit(cell.config) > 0
+    for part in ("limit", "measure", "worst"):
+        assert callable(getattr(cell.judge, part))
     assert cell.chips == 1
     names = [m["name"] for m in cell.end_to_end]
     assert "setup_s" in names and len(names) >= 2
