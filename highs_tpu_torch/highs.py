@@ -489,9 +489,10 @@ class Highs(HighsModelApi, HighsAnalysisApi):
 
     def _call_solve_qp(self) -> HighsStatus:
         from .solvers.qp.wrapper import solve_qp
-        status, solution, qp_info = solve_qp(
-            self._model, self._options, log=self._log,
-            device=self._device)
+        with self._timer.scope("solve"):
+            status, solution, qp_info = solve_qp(
+                self._model, self._options, log=self._log,
+                device=self._device)
         self._model_status = status
         self._solution = solution
         self._fill_info_lp(self._model.lp, qp_info,

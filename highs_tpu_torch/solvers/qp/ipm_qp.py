@@ -21,6 +21,18 @@ metrics by the host.  A failed factor gives NaN (`cholesky_ex`), which
 the solve loop answers by restoring the iterate and raising the
 regularization, with no extra sync.  Q and A are built dense on the
 device from their sparse triplets; the host never holds them dense.
+
+Where that loop ends short of optimal, `solve_qp_ipm` runs a repaired
+pass (see there) whose iterations factor the reduced KKT matrix whole:
+
+    [[Q + Dx, -A'], [A, diag(slack)/Ds + reg]] (dx, dy) = ...
+
+by LU with partial pivoting, one factor an iteration, and refine each
+direction through it.  The Schur complement above is what loses the
+degenerate QPs: as mu falls, Dx spans 1e-10 to 1e12 and A (Q+Dx)^-1 A'
+has eigenvalues far below reg_d and below its own rounding, so
+K dv = rb - reg_d dy leaves the primal residual where it is, and the
+duals of such QPs (up to 3e8 on CVXQP3_L) make that residual the gap.
 """
 from __future__ import annotations
 
@@ -39,17 +51,26 @@ from ...models.lp import HighsHessian, HighsModel
 from ...models.solution import HighsSolution
 from ...ops.linops import dense_from_csc
 from ...options import HighsOptions
+from ...utils.timer import span
 from ..ipm.solver import (EPS, F64, IpmProblem, IpmRunInfo, PhaseClock,
                           cho_solve, cholesky, starting_point)
 from ..pdlp.preprocess import preprocess_lp, recover_solution
 
 # the phases of one iteration timed into the facade's clocks (`qp_*`):
 # the Cholesky of Q + Dx, the solves W = (Q+Dx)^-1 A', the GEMM A W and
-# the Cholesky of the Schur complement
-PHASES = ("factor_q", "solve_at", "gemm", "factor_m")
-# dense Cholesky factors of the iterations, by device type: read like
+# the Cholesky of the Schur complement; in the repaired pass the LU of
+# the reduced KKT matrix
+PHASES = ("factor_q", "solve_at", "gemm", "factor_m", "factor_kkt")
+# dense triangular factors of the iterations, by device type (two an
+# iteration: the two Cholesky factors, or an LU's L and U): read like
 # the kernels' launch counters, so that a run can show where they ran
 DENSE_FACTORS = {"cuda": 0, "cpu": 0}
+# repaired passes (`solve_qp_ipm`), by device type
+REPAIRS = {"cuda": 0, "cpu": 0}
+# the repaired pass: rounds of refinement of each direction, and its
+# regularization (primal, dual), far below the first pass's 1e-9
+REFINE = 2
+REPAIR_REGS = (1e-12, 1e-12)
 
 
 class QpIpmProblem(NamedTuple):
@@ -108,11 +129,14 @@ def _residuals(problem: QpIpmProblem, state: QpIpmState):
 
 
 def qp_ipm_step(problem: QpIpmProblem, state: QpIpmState, regs,
-                settings: Tuple, clock: Optional[PhaseClock] = None
-                ) -> Tuple[QpIpmState, QpIpmMetrics]:
+                settings: Tuple, clock: Optional[PhaseClock] = None,
+                kkt: bool = False) -> Tuple[QpIpmState, QpIpmMetrics]:
     """One Mehrotra predictor-corrector iteration on the problem's
     device.  `regs` = (reg_primal, reg_dual); `settings` = (sigma_min,
-    sigma_max, ftb, theta_max); `clock` times the phases of `PHASES`."""
+    sigma_max, ftb, theta_max); `clock` times the phases of `PHASES`.
+    With `kkt` the Newton systems go through the LU of the reduced KKT
+    matrix, each direction refined `REFINE` times (the repaired pass);
+    without, through the Schur complement (the JAX package's step)."""
     def phase(name):
         return clock.phase(name) if clock is not None else \
             contextlib.nullcontext()
@@ -136,43 +160,90 @@ def qp_ipm_step(problem: QpIpmProblem, state: QpIpmState, regs,
                     torch.clamp_min(d, 1.0 / theta_max), theta_max)
     d_x, d_s = d[:n], d[n:]
 
-    # factor (Q + Dx) once per iteration
-    with phase("factor_q"):
-        qd = problem.q.clone()
-        qd.diagonal().add_(d_x)
-        chol_qd = cholesky(qd)
-        del qd
-    # W = (Q+Dx)^-1 A'  (n x m)
-    with phase("solve_at"):
-        w = torch.cholesky_solve(problem.a.T, chol_qd)
-    theta_s = problem.slack_mask / d_s
-    with phase("gemm"):
-        mmat = problem.a @ w
-        mmat.diagonal().add_(theta_s + reg_d)
-        del w
-    with phase("factor_m"):
-        chol_m = cholesky(mmat)
-        del mmat
-    DENSE_FACTORS[chol_qd.device.type] += 2
+    if kkt:
+        m = problem.a.shape[0]
+        theta_s = problem.slack_mask / d_s
+        with phase("factor_kkt"):
+            mat = problem.q.new_zeros((n + m, n + m))
+            mat[:n, :n] = problem.q
+            mat[:n, :n].diagonal().add_(d_x)
+            mat[:n, n:] = -problem.a.T
+            mat[n:, :n] = problem.a
+            mat[n:, n:].diagonal().add_(theta_s + reg_d)
+            lu, piv, _ = torch.linalg.lu_factor_ex(mat)
+            del mat
+        DENSE_FACTORS[lu.device.type] += 2
 
-    def hd_solve(v):
-        """(H + D)^-1 v over stacked vars."""
-        return torch.cat([cho_solve(chol_qd, v[:n]), v[n:] / d_s])
+        def kkt_solve(f, g):
+            """(dv, dy) with (H + D) dv - K'dy = f, K dv + reg_d dy = g:
+            the slacks eliminated, (dx, dy) through the LU."""
+            f_s = f[n:]
+            rhs = torch.cat([f[:n], g + problem.slack_mask * f_s / d_s])
+            sol = torch.linalg.lu_solve(lu, piv, rhs[:, None])[:, 0]
+            dy = sol[n:]
+            return torch.cat([sol[:n], (f_s - problem.slack_mask * dy) /
+                              d_s]), dy
 
-    def solve_newton(rmu_l, rmu_u):
-        rhs_v = (rc - rmu_l / xl_safe * lo_fin -
-                 state.zl * rl / xl_safe * lo_fin +
-                 rmu_u / xu_safe * up_fin -
-                 state.zu * ru / xu_safe * up_fin)
-        wv = hd_solve(rhs_v)
-        rhs_y = rb + _mv(problem, wv)
-        dy = cho_solve(chol_m, rhs_y)
-        dv = hd_solve(_rmv(problem, dy) - rhs_v)
-        dxl = (dv - rl) * lo_fin
-        dxu = (ru - dv) * up_fin
-        dzl = ((rmu_l - state.zl * dxl) / xl_safe) * lo_fin
-        dzu = ((rmu_u - state.zu * dxu) / xu_safe) * up_fin
-        return dv, dy, dxl, dxu, dzl, dzu
+        def hd_mul(v):
+            """(H + D) v over stacked vars."""
+            return torch.cat([problem.q @ v[:n] + d_x * v[:n],
+                              d_s * v[n:]])
+
+        def solve_newton(rmu_l, rmu_u):
+            rhs_v = (rc - rmu_l / xl_safe * lo_fin -
+                     state.zl * rl / xl_safe * lo_fin +
+                     rmu_u / xu_safe * up_fin -
+                     state.zu * ru / xu_safe * up_fin)
+            dv, dy = kkt_solve(-rhs_v, rb)
+            for _ in range(REFINE):
+                # the residuals of the factored system, solved again
+                ddv, ddy = kkt_solve(
+                    _rmv(problem, dy) - rhs_v - hd_mul(dv),
+                    rb - _mv(problem, dv) - reg_d * dy)
+                dv, dy = dv + ddv, dy + ddy
+            dxl = (dv - rl) * lo_fin
+            dxu = (ru - dv) * up_fin
+            dzl = ((rmu_l - state.zl * dxl) / xl_safe) * lo_fin
+            dzu = ((rmu_u - state.zu * dxu) / xu_safe) * up_fin
+            return dv, dy, dxl, dxu, dzl, dzu
+    else:
+        # factor (Q + Dx) once per iteration
+        with phase("factor_q"):
+            qd = problem.q.clone()
+            qd.diagonal().add_(d_x)
+            chol_qd = cholesky(qd)
+            del qd
+        # W = (Q+Dx)^-1 A'  (n x m)
+        with phase("solve_at"):
+            w = torch.cholesky_solve(problem.a.T, chol_qd)
+        theta_s = problem.slack_mask / d_s
+        with phase("gemm"):
+            mmat = problem.a @ w
+            mmat.diagonal().add_(theta_s + reg_d)
+            del w
+        with phase("factor_m"):
+            chol_m = cholesky(mmat)
+            del mmat
+        DENSE_FACTORS[chol_qd.device.type] += 2
+
+        def hd_solve(v):
+            """(H + D)^-1 v over stacked vars."""
+            return torch.cat([cho_solve(chol_qd, v[:n]), v[n:] / d_s])
+
+        def solve_newton(rmu_l, rmu_u):
+            rhs_v = (rc - rmu_l / xl_safe * lo_fin -
+                     state.zl * rl / xl_safe * lo_fin +
+                     rmu_u / xu_safe * up_fin -
+                     state.zu * ru / xu_safe * up_fin)
+            wv = hd_solve(rhs_v)
+            rhs_y = rb + _mv(problem, wv)
+            dy = cho_solve(chol_m, rhs_y)
+            dv = hd_solve(_rmv(problem, dy) - rhs_v)
+            dxl = (dv - rl) * lo_fin
+            dxu = (ru - dv) * up_fin
+            dzl = ((rmu_l - state.zl * dxl) / xl_safe) * lo_fin
+            dzu = ((rmu_u - state.zu * dxu) / xu_safe) * up_fin
+            return dv, dy, dxl, dxu, dzl, dzu
 
     def max_step(v, dv, mask):
         ratio = torch.where((dv < 0) & (mask > 0),
@@ -242,141 +313,315 @@ def dense_hessian(hessian: HighsHessian, n_std: int, sense: float,
     return q
 
 
-def _host_metrics(metrics: QpIpmMetrics) -> QpIpmMetrics:
-    """The metrics as Python floats, in one device-to-host read."""
-    return QpIpmMetrics(*torch.stack(list(metrics)).cpu().tolist())
+def _lp_view(problem: QpIpmProblem, c: torch.Tensor) -> IpmProblem:
+    """The QP's constraints with the cost `c`, as the LP IPM's problem."""
+    return IpmProblem(
+        a=problem.a, b=problem.b, c=c, slack_mask=problem.slack_mask,
+        lo=problem.lo, up=problem.up, lo_fin=problem.lo_fin,
+        up_fin=problem.up_fin, active=problem.active,
+        norm_c=torch.linalg.norm(c), norm_b=problem.norm_b)
+
+
+def qp_starting_point(problem: QpIpmProblem) -> QpIpmState:
+    """The LP IPM's least-squares start with the objective's gradient
+    at its x0 in place of c: y0 fits c + Q x0, z0 is what y0 leaves of
+    it, and the duals' shift scales with that gradient.  The LP start
+    takes y0 and z0 from c alone, so where Q's weights dwarf c the
+    first dual residual is Q x0 whole and the joint step stays tiny
+    (CVXQP2: 5.8e5 from the first iteration to the stall)."""
+    n = problem.a.shape[1]
+    chol = cholesky(problem.a @ problem.a.T +
+                    torch.diag(problem.slack_mask + 1e-8))
+
+    def solve_gram(rhs):
+        return cho_solve(chol, rhs)
+    x0 = starting_point(_lp_view(problem, problem.c), solve_gram).x
+    grad = problem.c + problem.q @ x0[:n]
+    return QpIpmState(*starting_point(_lp_view(problem, grad), solve_gram))
+
+
+def certificate(problem: QpIpmProblem, state: QpIpmState) -> torch.Tensor:
+    """The optimality certificate of the iterate's x and y in standard
+    form, with the reduced costs z = c + Qx - K'y that the solution
+    reports (so stationarity holds by construction), on the device:
+    the primal residual and bound violation over 1 + |b|, the weight of
+    z on infinite bounds over 1 + |c|, and the gap between c'x +
+    1/2 x'Qx and the dual objective b'y - 1/2 x'Qx + the finite bound
+    terms over 1 + |both|."""
+    n = problem.a.shape[1]
+    x_std = state.x[:n]
+    qx = problem.q @ x_std
+    z = torch.cat([problem.c + qx, qx.new_zeros(problem.a.shape[0])]) - \
+        _rmv(problem, state.y)
+    # infinite bounds are stored as -+1e30
+    lo_f, up_f = problem.lo > -1e29, problem.up < 1e29
+    zp, zn = torch.clamp_min(z, 0.0), torch.clamp_max(z, 0.0)
+    viol = torch.cat([
+        problem.b - _mv(problem, state.x),
+        torch.where(lo_f, torch.clamp_min(problem.lo - state.x, 0.0), 0.0),
+        torch.where(up_f, torch.clamp_min(state.x - problem.up, 0.0), 0.0)])
+    wrong = torch.cat([torch.where(lo_f, 0.0, zp),
+                       torch.where(up_f, 0.0, zn)])
+    pobj = torch.dot(problem.c, x_std) + 0.5 * torch.dot(x_std, qx)
+    dobj = (torch.dot(problem.b, state.y) - 0.5 * torch.dot(x_std, qx) +
+            torch.where(lo_f, problem.lo * zp, 0.0).sum() +
+            torch.where(up_f, problem.up * zn, 0.0).sum())
+    return torch.stack([
+        torch.linalg.norm(viol) / (1.0 + problem.norm_b),
+        torch.linalg.norm(wrong) / (1.0 + problem.norm_c),
+        torch.abs(pobj - dobj) / (1.0 + torch.abs(pobj) + torch.abs(dobj))])
+
+
+class _Loop:
+    """The iterations of one solve, shared by the first pass and the
+    repaired one: each step, the host's one read of its metrics, and
+    the stopping rules.  At most `ipm_iteration_limit` iterations in
+    all, and 200 a pass."""
+
+    def __init__(self, problem, options, clock, t0, log):
+        self.problem = problem
+        self.options = options
+        self.clock = clock
+        self.t0 = t0
+        self.log = log
+        self.tol = options.ipm_optimality_tolerance
+        # reading these waits for the set-up
+        self.norm_b = float(problem.norm_b)
+        self.norm_c = float(problem.norm_c)
+        self.iterations = 0
+
+    def left(self) -> int:
+        """The iterations the next pass may take."""
+        return min(self.options.ipm_iteration_limit - self.iterations, 200)
+
+    def run(self, state: QpIpmState, repaired: bool = False):
+        """Iterate from `state`: (status, state).  The repaired pass
+        steps through the KKT matrix's LU at `REPAIR_REGS` and stops
+        optimal on the `certificate` at the tolerance; the first pass is
+        the JAX package's loop."""
+        sett = (1e-4, 0.9, 0.9995, 1e10)
+        regs = np.array(REPAIR_REGS if repaired else [1e-9, 1e-9])
+        limit = self.left()
+        stall = 0
+        best_err = np.inf
+        nan_retries = 0
+        it = 0
+        status = HighsModelStatus.kNotset
+        while it < limit:
+            prev = state
+            state, metrics = qp_ipm_step(self.problem, state, regs, sett,
+                                         clock=self.clock, kkt=repaired)
+            it += 1
+            self.iterations += 1
+            read = list(metrics)
+            if repaired:
+                read += list(certificate(self.problem, state))
+            read = torch.stack(read).cpu().tolist()
+            mh, cert = QpIpmMetrics(*read[:7]), read[7:]
+            self.clock.collect()
+            if not math.isfinite(mh.mu):
+                state = prev
+                nan_retries += 1
+                regs = regs * 100.0
+                if nan_retries > 4:
+                    status = HighsModelStatus.kUnknown
+                    break
+                continue
+            rel_p = mh.primal_res / (1.0 + self.norm_b)
+            rel_d = mh.dual_res / (1.0 + self.norm_c)
+            rel_mu = mh.mu / (1.0 + abs(mh.primal_obj))
+            if self.log is not None:
+                self.log(f"qp-ipm {self.iterations:3d} "
+                         f"pobj={mh.primal_obj:.10e} mu={mh.mu:.2e} "
+                         f"rp={rel_p:.2e} rd={rel_d:.2e}" +
+                         "".join(f" {k}={v:.2e}" for k, v in
+                                 zip(("cp", "cs", "cg"), cert)))
+            err = rel_p + rel_d + rel_mu
+            if err < best_err * 0.99:
+                best_err = err
+                stall = 0
+            else:
+                stall += 1
+            if cert and max(cert) < self.tol or not repaired and \
+                    rel_p < self.tol and rel_d < self.tol and \
+                    rel_mu < self.tol:
+                status = HighsModelStatus.kOptimal
+                break
+            if stall > 12:
+                status = HighsModelStatus.kUnknown
+                break
+            if time.perf_counter() - self.t0 > self.options.time_limit:
+                status = HighsModelStatus.kTimeLimit
+                break
+        if status == HighsModelStatus.kNotset:
+            status = HighsModelStatus.kIterationLimit
+        return status, state
+
+    def short(self, status, state) -> bool:
+        """Whether the first pass ended short of optimal: a stall, the
+        iteration cap with iterations left, or an optimal stop whose
+        certificate misses the tolerance."""
+        if status == HighsModelStatus.kOptimal:
+            cert = certificate(self.problem, state).cpu().tolist()
+            return max(cert) >= self.tol
+        return status == HighsModelStatus.kUnknown or \
+            status == HighsModelStatus.kIterationLimit and self.left() > 0
+
+
+def _exact_dot_rows(rows, cols, vals, v, size) -> np.ndarray:
+    """sum over k of vals_k v[cols_k] into entry rows_k, each product
+    and sum compensated (Dekker's split products, Knuth's two-sums over
+    the terms of an entry): the result is the exact sum rounded to
+    float64 but for rounding of the order eps^2."""
+    a = np.asarray(vals, dtype=np.float64)
+    b = np.asarray(v, dtype=np.float64)[cols]
+    p = a * b
+    split = 134217729.0  # 2^27 + 1
+
+    def halves(u):
+        t = split * u
+        hi = t - (t - u)
+        return hi, u - hi
+    a_hi, a_lo = halves(a)
+    b_hi, b_lo = halves(b)
+    err = ((a_hi * b_hi - p) + a_hi * b_lo + a_lo * b_hi) + a_lo * b_lo
+    # lay each entry's terms out in a row of a padded table
+    order = np.argsort(rows, kind="stable")
+    rows, p, err = rows[order], p[order], err[order]
+    counts = np.bincount(rows, minlength=size)
+    slot = np.arange(len(rows)) - np.repeat(np.cumsum(counts) - counts,
+                                            counts)
+    width = int(counts.max(initial=0))
+    table = np.zeros((size, max(width, 1)))
+    table[rows, slot] = p
+    s = table[:, 0].copy()
+    comp = np.bincount(rows, weights=err, minlength=size)
+    for k in range(1, width):
+        t = table[:, k]
+        total = s + t
+        back = total - s
+        comp += (s - (total - back)) + (t - back)
+        s = total
+    return s + comp
+
+
+def reduced_costs(model: HighsModel, x: np.ndarray,
+                  row_dual: np.ndarray) -> np.ndarray:
+    """c + Qx - A'y of the model at (x, y), every product and sum
+    compensated: where the duals reach 1e8 (CVXQP3_L), a plain float64
+    A'y rounds each of its terms by 1e-8 and more."""
+    lp = model.lp
+    n = lp.num_col
+    q = model.hessian.to_scipy_full().tocoo()
+    a = lp.a_matrix.to_scipy().tocoo()
+    rows = np.concatenate([np.arange(n), q.row, a.col])
+    cols = np.concatenate([np.arange(n), n + q.col, 2 * n + a.row])
+    vals = np.concatenate([lp.col_cost, q.data, -a.data])
+    v = np.concatenate([np.ones(n), x, row_dual])
+    return _exact_dot_rows(rows, cols, vals, v, n)
 
 
 def solve_qp_ipm(model: HighsModel, options: HighsOptions, log=None,
                  device=None
                  ) -> Tuple[HighsModelStatus, HighsSolution, IpmRunInfo]:
     """Solve a convex QP with the dense QP IPM on `device` (default
-    CUDA).  The iterations' phases land in the facade's clocks
-    (`qp_setup`, `qp_iterations`, `qp_factor_q`, `qp_solve_at`,
-    `qp_gemm`, `qp_factor_m`)."""
+    CUDA).  The facade's clocks (`getTimer()`) and, under a profiler,
+    spans "highs.<clock>": `qp_setup` (`qp.prepare`: standard form, Q
+    and A dense on the device; `qp.start`: the starting point),
+    `qp_iterations` (calls = iterations), the iterations' phases
+    `qp_factor_q`, `qp_solve_at`, `qp_gemm`, `qp_factor_m` and
+    `qp_factor_kkt`, `qp.repair` (the repaired pass) and `qp.recover`
+    (the solution in the model's space).
+
+    The first pass is the JAX package's.  Where it ends short of
+    optimal (`_Loop.short`), the repaired pass restarts from the
+    gradient-aware `qp_starting_point`, steps through the LU of the
+    reduced KKT matrix and stops on the `certificate`; `REPAIRS` counts
+    these passes by device.  The
+    reported reduced costs are c + Qx - A'y recomputed in compensated
+    arithmetic from the model."""
     device = resolve_device(device)
     t0 = time.perf_counter()
+    timer = getattr(options, "_timer", None)
     info = IpmRunInfo()
     lp = model.lp
     sense = float(lp.sense)
 
-    std = preprocess_lp(lp)
-    m, n_std = std.num_row, std.num_col
-    a_csc = sp.csc_matrix(std.a)
+    with span(timer, "qp_setup"):
+        with span(timer, "qp.prepare"):
+            std = preprocess_lp(lp)
+            m, n_std = std.num_row, std.num_col
+            a_csc = sp.csc_matrix(std.a)
 
-    is_ineq = (np.arange(m) >= std.num_eq).astype(np.float64)
-    lo = np.concatenate([std.col_lower, np.zeros(m)])
-    up = np.concatenate([std.col_upper,
-                         np.where(is_ineq > 0, np.inf, 0.0)])
-    fixed = np.zeros(n_std + m, dtype=bool)
-    with np.errstate(invalid="ignore"):
-        fixed[:n_std] = (np.isfinite(lo[:n_std]) & np.isfinite(up[:n_std])
-                         & (up[:n_std] - lo[:n_std] <=
-                            1e-14 * (1.0 + np.abs(lo[:n_std]))))
-    fixed[n_std:] = is_ineq == 0
-    big = 1e30
+            is_ineq = (np.arange(m) >= std.num_eq).astype(np.float64)
+            lo = np.concatenate([std.col_lower, np.zeros(m)])
+            up = np.concatenate([std.col_upper,
+                                 np.where(is_ineq > 0, np.inf, 0.0)])
+            fixed = np.zeros(n_std + m, dtype=bool)
+            with np.errstate(invalid="ignore"):
+                fixed[:n_std] = (np.isfinite(lo[:n_std]) &
+                                 np.isfinite(up[:n_std]) &
+                                 (up[:n_std] - lo[:n_std] <=
+                                  1e-14 * (1.0 + np.abs(lo[:n_std]))))
+            fixed[n_std:] = is_ineq == 0
+            big = 1e30
 
-    def dev(v):
-        return torch.as_tensor(v, dtype=F64, device=device)
-    problem = QpIpmProblem(
-        a=dense_from_csc(a_csc.indptr, a_csc.indices, a_csc.data,
-                         (m, n_std), device),
-        # sense: minimize sense*(c'x + 1/2 x'Qx); preprocess scaled c
-        q=dense_hessian(model.hessian, n_std, sense, device),
-        b=dev(std.b), c=dev(std.c), slack_mask=dev(is_ineq),
-        lo=dev(np.where(np.isfinite(lo), lo, -big)),
-        up=dev(np.where(np.isfinite(up), up, big)),
-        lo_fin=dev(np.isfinite(lo) & ~fixed),
-        up_fin=dev(np.isfinite(up) & ~fixed),
-        active=dev(~fixed),
-        norm_c=dev(np.linalg.norm(std.c)),
-        norm_b=dev(np.linalg.norm(std.b)))
+            def dev(v):
+                return torch.as_tensor(v, dtype=F64, device=device)
+            problem = QpIpmProblem(
+                a=dense_from_csc(a_csc.indptr, a_csc.indices, a_csc.data,
+                                 (m, n_std), device),
+                # sense: minimize sense*(c'x + 1/2 x'Qx); preprocess
+                # scaled c
+                q=dense_hessian(model.hessian, n_std, sense, device),
+                b=dev(std.b), c=dev(std.c), slack_mask=dev(is_ineq),
+                lo=dev(np.where(np.isfinite(lo), lo, -big)),
+                up=dev(np.where(np.isfinite(up), up, big)),
+                lo_fin=dev(np.isfinite(lo) & ~fixed),
+                up_fin=dev(np.isfinite(up) & ~fixed),
+                active=dev(~fixed),
+                norm_c=dev(np.linalg.norm(std.c)),
+                norm_b=dev(np.linalg.norm(std.b)))
+        with span(timer, "qp.start"):
+            # starting point: the LP IPM's least-squares heuristic
+            state = QpIpmState(*starting_point(
+                _lp_view(problem, problem.c)))
+            clock = PhaseClock(device, PHASES)
+            loop = _Loop(problem, options, clock, t0, log)
 
-    # starting point: the LP IPM's least-squares heuristic
-    st0 = starting_point(IpmProblem(
-        a=problem.a, b=problem.b, c=problem.c,
-        slack_mask=problem.slack_mask, lo=problem.lo, up=problem.up,
-        lo_fin=problem.lo_fin, up_fin=problem.up_fin,
-        active=problem.active, norm_c=problem.norm_c,
-        norm_b=problem.norm_b))
-    state = QpIpmState(*st0)
-
-    tol = options.ipm_optimality_tolerance
-    sett = (1e-4, 0.9, 0.9995, 1e10)
-    regs = np.array([1e-9, 1e-9])
-    # reading these waits for the set-up
-    norm_b_h = float(problem.norm_b)
-    norm_c_h = float(problem.norm_c)
-    clock = PhaseClock(device, PHASES)
-    t_loop = time.perf_counter()
-    status = HighsModelStatus.kNotset
-    it = 0
-    stall = 0
-    best_err = np.inf
-    nan_retries = 0
-    limit = min(options.ipm_iteration_limit, 200)
-    while it < limit:
-        prev = state
-        state, metrics = qp_ipm_step(problem, state, regs, sett,
-                                     clock=clock)
-        it += 1
-        mh = _host_metrics(metrics)
-        clock.collect()
-        if not math.isfinite(mh.mu):
-            state = prev
-            nan_retries += 1
-            regs = regs * 100.0
-            if nan_retries > 4:
-                status = HighsModelStatus.kUnknown
-                break
-            continue
-        rel_p = mh.primal_res / (1.0 + norm_b_h)
-        rel_d = mh.dual_res / (1.0 + norm_c_h)
-        rel_mu = mh.mu / (1.0 + abs(mh.primal_obj))
-        if log is not None:
-            log(f"qp-ipm {it:3d} pobj={mh.primal_obj:.10e} "
-                f"mu={mh.mu:.2e} rp={rel_p:.2e} rd={rel_d:.2e}")
-        err = rel_p + rel_d + rel_mu
-        if err < best_err * 0.99:
-            best_err = err
-            stall = 0
-        else:
-            stall += 1
-        if rel_p < tol and rel_d < tol and rel_mu < tol:
-            status = HighsModelStatus.kOptimal
-            break
-        if stall > 12:
-            status = HighsModelStatus.kUnknown
-            break
-        if time.perf_counter() - t0 > options.time_limit:
-            status = HighsModelStatus.kTimeLimit
-            break
-    if status == HighsModelStatus.kNotset:
-        status = HighsModelStatus.kIterationLimit
-    timer = getattr(options, "_timer", None)
+    with span(timer, "qp_iterations") as scope:
+        status, state = loop.run(state)
+        scope.calls = loop.iterations
+    if loop.short(status, state):
+        with span(timer, "qp.repair"):
+            REPAIRS[torch.device(device).type] += 1
+            if log is not None:
+                log(f"qp-ipm: {status.name} after {loop.iterations} "
+                    "iterations; the repaired pass restarts")
+            with span(timer, "qp.start"):
+                state = qp_starting_point(problem)
+            first = loop.iterations
+            with span(timer, "qp_iterations") as scope:
+                status, state = loop.run(state, repaired=True)
+                scope.calls = loop.iterations - first
+    it = loop.iterations
     if timer is not None:
-        # the facade's named clocks (getTimer()): host seconds before the
-        # first iteration (standard form, the dense Q and A built on the
-        # device, the starting point) and of the iterations, and their
-        # phases
-        timer.add("qp_setup", t_loop - t0)
-        timer.add("qp_iterations", time.perf_counter() - t_loop, calls=it)
         for name, seconds in clock.seconds.items():
             timer.add(f"qp_{name}", seconds, calls=it)
 
-    # reduced costs: grad - K'y restricted to x block
-    x_std = state.x[:n_std]
-    z_std = problem.q @ x_std + problem.c - state.y @ problem.a
-    x_h, y_h, z_h = (v.cpu().numpy() for v in (x_std, state.y, z_std))
-    col_value, row_dual, col_dual = recover_solution(std, x_h, y_h, z_h)
-    row_value = lp.a_matrix.to_scipy() @ col_value
-    sol = HighsSolution(value_valid=True, dual_valid=True,
-                        col_value=col_value, col_dual=col_dual,
-                        row_value=row_value, row_dual=row_dual)
+    with span(timer, "qp.recover"):
+        x_h, y_h = (v.cpu().numpy() for v in (state.x[:n_std], state.y))
+        col_value, row_dual, _ = recover_solution(std, x_h, y_h,
+                                                  np.zeros(n_std))
+        col_dual = reduced_costs(model, col_value, row_dual)
+        row_value = lp.a_matrix.to_scipy() @ col_value
+        sol = HighsSolution(value_valid=True, dual_valid=True,
+                            col_value=col_value, col_dual=col_dual,
+                            row_value=row_value, row_dual=row_dual)
+        info.primal_obj = (float(lp.col_cost @ col_value) + lp.offset +
+                           model.hessian.quad_value(col_value))
     info.status = status
     info.iterations = it
     info.ipm_iterations = it
-    info.primal_obj = (float(lp.col_cost @ col_value) + lp.offset +
-                       model.hessian.quad_value(col_value))
     info.solve_time = time.perf_counter() - t0
     return status, sol, info

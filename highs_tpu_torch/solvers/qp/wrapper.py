@@ -14,6 +14,7 @@ from ...device import resolve_device
 from ...models.lp import HighsModel
 from ...models.solution import HighsSolution
 from ...options import HighsOptions
+from ...utils.timer import span
 from ..classify import classify_qp_inconclusive
 from .active_set import solve_qp_active_set
 from .ipm_qp import solve_qp_ipm
@@ -40,8 +41,9 @@ def solve_qp(model: HighsModel, options: HighsOptions, log=None,
                                           device=device)
     if status in (HighsModelStatus.kUnknown,
                   HighsModelStatus.kIterationLimit):
-        verdict = classify_qp_inconclusive(model, options, log=log,
-                                           device=device)
+        with span(getattr(options, "_timer", None), "qp.classify"):
+            verdict = classify_qp_inconclusive(model, options, log=log,
+                                               device=device)
         if verdict in (HighsModelStatus.kInfeasible,
                        HighsModelStatus.kUnbounded):
             info.status = verdict

@@ -159,7 +159,8 @@ class Scope:
         if self._timer is not None:
             self._timer.stop(self._name, self.calls)
         if self._span is not None:
-            self._span.__exit__(*exc)
+            # a bare `scope.__exit__()` closes the span too
+            self._span.__exit__(*(exc or (None, None, None)))
             self._span = None
         return False
 

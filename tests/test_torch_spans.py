@@ -360,3 +360,56 @@ def test_a_span_that_did_not_run_counts_zero(runs):
     assert oracle.read(run) == 0.0
     run.trace = trace.Trace()
     assert setup.read(run) is None and oracle.read(run) is None
+
+
+def _toy_cover(seed: int):
+    """A 12 x 24 set cover, three rows a column, integer costs 1..9:
+    min c'x s.t. A x >= 1, x binary (its root enters separation)."""
+    from highs_tpu_torch.models.lp import HighsLp, HighsSparseMatrix
+    rng = np.random.default_rng(seed)
+    m, n = 12, 24
+    rows = np.stack([rng.choice(m, size=3, replace=False) for _ in range(n)])
+    a = sp.lil_matrix((m, n))
+    a[rows.ravel(), np.repeat(np.arange(n), 3)] = 1.0
+    for i in np.flatnonzero(np.asarray(a.sum(axis=1)).ravel() == 0):
+        a[i, i % n] = 1.0
+    a = a.tocsc()
+    cost = rng.integers(1, 10, n).astype(np.float64)
+    return HighsLp(num_col=n, num_row=m, col_cost=cost,
+                   col_lower=np.zeros(n), col_upper=np.ones(n),
+                   row_lower=np.ones(m), row_upper=np.full(m, np.inf),
+                   a_matrix=HighsSparseMatrix.from_scipy(a), sense=1,
+                   integrality=np.ones(n, dtype=np.uint8)), a, cost
+
+
+def test_a_bare_scope_exit_closes_its_span():
+    # `scope.__exit__()` with no arguments, as the MIP's separation
+    # clock is closed, ends the span under a running profiler
+    timer = HighsTimer()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU]) as prof:
+        scope = timer.scope("bare")
+        scope.__enter__()
+        scope.__exit__()
+    assert timer.num_calls("bare") == 1
+    assert any(e.name == "highs.bare" for e in prof.events())
+
+
+@pytest.mark.parametrize("seed", [1, 2, 3])
+def test_mip_with_separation_is_optimal_under_the_profiler(seed):
+    import highs_tpu_torch
+    from scipy.optimize import Bounds, LinearConstraint, milp
+    lp, a, cost = _toy_cover(seed)
+    want = milp(cost, constraints=LinearConstraint(a, lb=1.0),
+                integrality=np.ones(len(cost)), bounds=Bounds(0, 1)).fun
+    h = highs_tpu_torch.Highs(device="cpu")
+    h.setOptionValue("output_flag", False)
+    h.setOptionValue("mip_parallel_heuristics", False)
+    h.passModel(lp)
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU]) as prof:
+        h.run()
+    assert h.getModelStatus() == highs_tpu_torch.HighsModelStatus.kOptimal
+    assert h.getObjectiveValue() == pytest.approx(want, abs=1e-6)
+    assert h.getTimer().num_calls("mip::separation") >= 1
+    assert any(e.name == "highs.mip::separation" for e in prof.events())
