@@ -71,6 +71,8 @@ REPAIRS = {"cuda": 0, "cpu": 0}
 # regularization (primal, dual), far below the first pass's 1e-9
 REFINE = 2
 REPAIR_REGS = (1e-12, 1e-12)
+# the terms of one block of columns in `reduced_costs`
+BLOCK_TERMS = 2 ** 24
 
 
 class QpIpmProblem(NamedTuple):
@@ -468,57 +470,52 @@ class _Loop:
             status == HighsModelStatus.kIterationLimit and self.left() > 0
 
 
-def _exact_dot_rows(rows, cols, vals, v, size) -> np.ndarray:
-    """sum over k of vals_k v[cols_k] into entry rows_k, each product
-    and sum compensated (Dekker's split products, Knuth's two-sums over
-    the terms of an entry): the result is the exact sum rounded to
-    float64 but for rounding of the order eps^2."""
-    a = np.asarray(vals, dtype=np.float64)
-    b = np.asarray(v, dtype=np.float64)[cols]
-    p = a * b
-    split = 134217729.0  # 2^27 + 1
-
-    def halves(u):
-        t = split * u
-        hi = t - (t - u)
-        return hi, u - hi
-    a_hi, a_lo = halves(a)
-    b_hi, b_lo = halves(b)
-    err = ((a_hi * b_hi - p) + a_hi * b_lo + a_lo * b_hi) + a_lo * b_lo
-    # lay each entry's terms out in a row of a padded table
-    order = np.argsort(rows, kind="stable")
-    rows, p, err = rows[order], p[order], err[order]
-    counts = np.bincount(rows, minlength=size)
-    slot = np.arange(len(rows)) - np.repeat(np.cumsum(counts) - counts,
-                                            counts)
-    width = int(counts.max(initial=0))
-    table = np.zeros((size, max(width, 1)))
-    table[rows, slot] = p
-    s = table[:, 0].copy()
-    comp = np.bincount(rows, weights=err, minlength=size)
-    for k in range(1, width):
-        t = table[:, k]
-        total = s + t
-        back = total - s
-        comp += (s - (total - back)) + (t - back)
-        s = total
-    return s + comp
+def _halves(u: torch.Tensor):
+    """Dekker's split of u into hi + lo, each of at most 26 bits."""
+    t = 134217729.0 * u  # 2^27 + 1
+    hi = t - (t - u)
+    return hi, u - hi
 
 
-def reduced_costs(model: HighsModel, x: np.ndarray,
-                  row_dual: np.ndarray) -> np.ndarray:
-    """c + Qx - A'y of the model at (x, y), every product and sum
-    compensated: where the duals reach 1e8 (CVXQP3_L), a plain float64
-    A'y rounds each of its terms by 1e-8 and more."""
-    lp = model.lp
-    n = lp.num_col
-    q = model.hessian.to_scipy_full().tocoo()
-    a = lp.a_matrix.to_scipy().tocoo()
-    rows = np.concatenate([np.arange(n), q.row, a.col])
-    cols = np.concatenate([np.arange(n), n + q.col, 2 * n + a.row])
-    vals = np.concatenate([lp.col_cost, q.data, -a.data])
-    v = np.concatenate([np.ones(n), x, row_dual])
-    return _exact_dot_rows(rows, cols, vals, v, n)
+def reduced_costs(problem: QpIpmProblem, x: torch.Tensor,
+                  y: torch.Tensor) -> torch.Tensor:
+    """c + Qx - K'y over the structural columns, on the device, every
+    product and sum compensated: where the duals reach 1e8 (CVXQP3_L),
+    a plain float64 K'y rounds each of its terms by 1e-8 and more.
+
+    Column j's terms c_j, Q_kj x_k and -A_ij y_i are each split into a
+    part on the grid of sigma_j, a power of two above the column's
+    count times its largest term, and the rest (Rump's extraction): the
+    parts add up exactly in any order, the rests and the products'
+    errors (Dekker) are of the order eps sigma_j, so the result is the
+    exact sum rounded but for rounding of the order eps^2.  The columns
+    go in blocks of about `BLOCK_TERMS` terms."""
+    m, n = problem.a.shape
+    terms = n + m + 1
+    # 2^k >= terms + 1
+    grid = float(2 ** math.ceil(math.log2(terms + 1)))
+    vec = torch.cat([x.new_ones(1), x, -y])
+    v_hi, v_lo = (h[:, None] for h in _halves(vec))
+    vec = vec[:, None]
+    z = torch.empty_like(x)
+    step = max(1, BLOCK_TERMS // terms)
+    for j in range(0, n, step):
+        cols = slice(j, j + step)
+        mat = torch.cat([problem.c[None, cols], problem.q[:, cols],
+                         problem.a[:, cols]])
+        p = mat * vec
+        a_hi, a_lo = _halves(mat)
+        err = (((a_hi * v_hi - p) + a_hi * v_lo + a_lo * v_hi) +
+               a_lo * v_lo).sum(0)
+        del mat, a_hi, a_lo
+        mu = p.abs().amax(0)
+        mu = torch.where(mu > 0, mu, 1.0)
+        mant, _ = torch.frexp(mu)
+        # mu / mant is the power of two just above mu, exactly
+        sigma = mu / mant * grid
+        q = (sigma + p) - sigma
+        z[j:j + step] = q.sum(0) + ((p - q).sum(0) + err)
+    return z
 
 
 def solve_qp_ipm(model: HighsModel, options: HighsOptions, log=None,
@@ -538,8 +535,8 @@ def solve_qp_ipm(model: HighsModel, options: HighsOptions, log=None,
     gradient-aware `qp_starting_point`, steps through the LU of the
     reduced KKT matrix and stops on the `certificate`; `REPAIRS` counts
     these passes by device.  The
-    reported reduced costs are c + Qx - A'y recomputed in compensated
-    arithmetic from the model."""
+    reported reduced costs are c + Qx - A'y in compensated arithmetic
+    (`reduced_costs`), on the device."""
     device = resolve_device(device)
     t0 = time.perf_counter()
     timer = getattr(options, "_timer", None)
@@ -610,10 +607,10 @@ def solve_qp_ipm(model: HighsModel, options: HighsOptions, log=None,
             timer.add(f"qp_{name}", seconds, calls=it)
 
     with span(timer, "qp.recover"):
-        x_h, y_h = (v.cpu().numpy() for v in (state.x[:n_std], state.y))
-        col_value, row_dual, _ = recover_solution(std, x_h, y_h,
-                                                  np.zeros(n_std))
-        col_dual = reduced_costs(model, col_value, row_dual)
+        x_std = state.x[:n_std]
+        z_std = reduced_costs(problem, x_std, state.y)
+        x_h, y_h, z_h = (v.cpu().numpy() for v in (x_std, state.y, z_std))
+        col_value, row_dual, col_dual = recover_solution(std, x_h, y_h, z_h)
         row_value = lp.a_matrix.to_scipy() @ col_value
         sol = HighsSolution(value_valid=True, dual_valid=True,
                             col_value=col_value, col_dual=col_dual,

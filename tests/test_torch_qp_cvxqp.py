@@ -10,6 +10,8 @@
   port stops at a relative gap of 1e-8 over 1 + |p| + |d|, which bounds
   its objective's error by about twice that), and both answers within
   1e-7 by the certificate of `lpbench/qp_reference.py`.
+- The reported reduced costs c + Qx - A'y: the exact sum rounded, in one
+  block of columns and in several.
 - A QP solve opens the QP IPM's spans under `torch.profiler` and runs
   under the facade's `solve` clock.
 - CVXQP2 at n = 2,600 and CVXQP3 at n = 3,000, the smallest n (in steps
@@ -18,6 +20,8 @@
   CVXQP3's case takes about two minutes in one thread: its first pass
   runs 68 Schur iterations of 1.7 s before the stall rule ends it.
 """
+from fractions import Fraction
+
 import numpy as np
 import pytest
 import torch
@@ -119,6 +123,38 @@ def test_port_agrees_with_the_plain_reference(case):
     assert status == HighsModelStatus.kOptimal
     assert worst_plain <= 1e-7 and worst <= 1e-7
     assert obj == pytest.approx(want, rel=2e-8)
+
+
+@pytest.mark.parametrize("block_terms", [2 ** 24, 40])
+def test_reduced_costs_are_the_exact_sum_rounded(monkeypatch, block_terms):
+    # duals of 3e8 against a reduced cost of 1e-3: a plain float64
+    # c + Qx - A'y is off by about 1e-7; blocks of 40 terms take the 9
+    # columns two at a time
+    monkeypatch.setattr(ipm_qp, "BLOCK_TERMS", block_terms)
+    rng = np.random.default_rng(5)
+    m, n = 7, 9
+    a = rng.integers(-3, 4, (m, n)).astype(float)
+    b = rng.standard_normal((n, n))
+    q = 1e4 * b @ b.T
+    x = 10.0 * rng.standard_normal(n)
+    y = 3e8 * rng.standard_normal(m)
+    c = a.T @ y - q @ x + 1e-3 * rng.standard_normal(n)
+    exact = np.array([float(
+        Fraction(c[j]) + sum(Fraction(q[k, j]) * Fraction(x[k])
+                             for k in range(n)) -
+        sum(Fraction(a[i, j]) * Fraction(y[i]) for i in range(m)))
+        for j in range(n)])
+    assert np.abs(c + q @ x - a.T @ y - exact).max() > 1e-9
+
+    def t(v):
+        return torch.as_tensor(v, dtype=torch.float64)
+    problem = ipm_qp.QpIpmProblem(
+        a=t(a), q=t(q), b=t(np.zeros(m)), c=t(c), slack_mask=t(np.zeros(m)),
+        lo=t(np.zeros(n + m)), up=t(np.zeros(n + m)),
+        lo_fin=t(np.zeros(n + m)), up_fin=t(np.zeros(n + m)),
+        active=t(np.ones(n + m)), norm_c=t(0.0), norm_b=t(0.0))
+    z = ipm_qp.reduced_costs(problem, t(x), t(y)).numpy()
+    assert np.array_equal(z, exact)
 
 
 def profiled(qp):
