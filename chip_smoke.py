@@ -228,6 +228,18 @@ Phases, each of which fails the run (non-zero exit) when it fails:
             products, the rest), the busy share and the launches per step
             of block64k's windows, synth50k's and block64k's average
             blocks with the graphs on (`tools/profile_block64k.py`).
+20. scaling  the PDLP scaling (`solvers/pdlp/scaling.py`, default
+            mode 5: Ruiz, then L2) of block64k's and synth50k's
+            standard-form K on both routes: the card route's scaled
+            values, row and column scales and Ruiz passes equal the
+            numpy route's bit for bit, each route's seconds (host clock,
+            the card's ending in a synchronize), and the segment-sum
+            kernel (`csrc/segment_sum.cu`) on block64k's scaled K, rows
+            and columns, |a| and a * a: equal to its plain version bit
+            for bit, its cold time beside the byte bound, the plain
+            version's and one `torch.segment_reduce` call's (rows, a
+            yardstick only).  Phases 7 and 8 print the counter
+            `pdlp.scale_device` (one a PDLP solve on the card).
 
 The PDLP phases (5-8, 11, 12, 18) run every ramped block as replays of
 captured CUDA graphs (one restart window, or one chunk of steps, and the
@@ -264,7 +276,8 @@ sys.path.insert(0, HERE)
 TOLERANCE = {"float32": 1e-5, "float64": 1e-12}
 KKT_TOL = 1e-7
 SOLVE_TIME_LIMIT = 600.0
-SOURCES = ["block_csr_spmv", "onehot_spmv", "gather_probe", "pdhg_step"]
+SOURCES = ["block_csr_spmv", "onehot_spmv", "gather_probe", "pdhg_step",
+           "segment_sum"]
 # the PDLP iterations of the phases on the tree before the step kernels
 # and graphs (its chip_smoke.py on an H100): the graphs replay the same
 # arithmetic, so the counts must not move
@@ -312,6 +325,10 @@ KERNELS = {
                        "highs_tpu/solvers/pdlp/pdhg.py:180 (XLA-fused "
                        "_halpern_step; :438 _avg_pdhg_step), no "
                        "pl.pallas_call"),
+    # no TPU kernel: the JAX package scales K on the host with numpy
+    "segment_sum": ("highs_tpu_torch/csrc/segment_sum.cu",
+                    "highs_tpu/solvers/pdlp/scaling.py:82 and :98 "
+                    "(np.bincount on the host), no pl.pallas_call"),
 }
 # the cold-round problem of phases 7 and 8, for phase 19
 FIRST_ROUND = {}
@@ -661,10 +678,12 @@ def kkt_check(a, b, c, upper, sol):
 
 
 def reset_launches():
-    from highs_tpu_torch.ops import block_csr, onehot_spmv, pdhg_step
+    from highs_tpu_torch.ops import (block_csr, onehot_spmv, pdhg_step,
+                                     segment_sum)
     from highs_tpu_torch.solvers.pdlp import graph
     from highs_tpu_torch.tools import gather_probe
     block_csr.LAUNCHES = 0
+    segment_sum.LAUNCHES = 0
     gather_probe.LAUNCHES = 0
     onehot_spmv.LAUNCHES["onehot_spmv"] = 0
     for name in pdhg_step.LAUNCHES:
@@ -673,11 +692,13 @@ def reset_launches():
 
 
 def read_launches():
-    from highs_tpu_torch.ops import block_csr, onehot_spmv, pdhg_step
+    from highs_tpu_torch.ops import (block_csr, onehot_spmv, pdhg_step,
+                                     segment_sum)
     from highs_tpu_torch.tools import gather_probe
     return {"block_csr_spmv": block_csr.LAUNCHES,
             "gather_probe": gather_probe.LAUNCHES,
             "onehot_spmv": onehot_spmv.LAUNCHES["onehot_spmv"],
+            "segment_sum": segment_sum.LAUNCHES,
             **pdhg_step.LAUNCHES}
 
 
@@ -748,6 +769,12 @@ def solve_phase(name, a, b, c, upper, options, anchor, path_kernels,
     iters = int(h.getInfo().pdlp_iteration_count)
     timer = h.getTimer()
     pdhg_s = timer.read("pdlp_round")
+    log(f"{name}: pdlp.scale_device {timer.counter('pdlp.scale_device')} "
+        f"pdlp.scale {timer.read('pdlp.scale'):.3f} s of pdlp.setup "
+        f"{timer.read('pdlp.setup'):.3f} s")
+    if device.type == "cuda" and timer.counter("pdlp.scale_device") != 1:
+        raise RuntimeError(f"{name}: the PDLP scaling did not take the "
+                           f"card route once")
     log(f"{name}: status {status.name} objective {h.getObjectiveValue()!r} "
         f"iterations {iters} restarts {timer.num_calls('pdlp_restart')} "
         f"seconds {seconds:.3f} iterations_per_s {iters / seconds:.1f} "
@@ -796,6 +823,138 @@ def solve_phase(name, a, b, c, upper, options, anchor, path_kernels,
         captures=graphs.get("captures", 0),
         launches_per_iteration={k: v / max(iters, 1)
                                 for k, v in launches.items()})
+
+
+def standard_form_k(a, b):
+    """K of min c'x s.t. Ax >= b, 0 <= x <= 10 as `pdlp_problem` scales
+    it (`preprocess_lp`)."""
+    import numpy as np
+    from highs_tpu_torch.models.lp import HighsLp, HighsSparseMatrix
+    from highs_tpu_torch.solvers.pdlp.preprocess import preprocess_lp
+    m, n = a.shape
+    lp = HighsLp(num_col=n, num_row=m, col_cost=np.ones(n),
+                 col_lower=np.zeros(n), col_upper=np.full(n, 10.0),
+                 row_lower=b.copy(), row_upper=np.full(m, np.inf),
+                 a_matrix=HighsSparseMatrix.from_scipy(a), sense=1)
+    return preprocess_lp(lp).a
+
+
+def same_bits(got, want) -> bool:
+    import numpy as np
+    return (got.dtype == want.dtype == np.float64 and
+            got.shape == want.shape and
+            bool(np.array_equal(got.view(np.int64), want.view(np.int64))))
+
+
+def segment_sum_records(k, device):
+    """The segment-sum kernel on a scaled K: rows and columns, |a| and
+    a * a, against its plain version bit for bit, with its cold time, the
+    byte bound, the plain version's per-call time and one
+    `torch.segment_reduce` call's (rows only; a yardstick)."""
+    import torch
+    from highs_tpu_torch.ops import segment_sum as seg
+    from highs_tpu_torch.tools.card import bound_ms, call_ms, time_ms
+    m, n = k.shape
+    values = torch.from_numpy(k.data).to(device)
+    row_ptr = torch.from_numpy(k.indptr).to(device, torch.int64)
+    cols = torch.from_numpy(k.indices).to(device, torch.int64)
+    order = torch.sort(cols, stable=True)[1]
+    col_ptr = torch.cat([
+        torch.zeros(1, dtype=torch.int64, device=device),
+        torch.cumsum(torch.bincount(cols, minlength=n), 0)])
+    del cols
+    records = []
+    for direction, ptr, o in (("rows", row_ptr, None),
+                              ("columns", col_ptr, order)):
+        nseg = ptr.shape[0] - 1
+        nbytes = (8 * k.nnz + 8 * (nseg + 1) + 8 * nseg +
+                  (8 * k.nnz if o is not None else 0))
+        b_ms, b_by = bound_ms(nbytes, 2 * k.nnz, torch.float64)
+        for square in (False, True):
+            before = seg.LAUNCHES
+            got = seg.segment_sum(values, ptr, o, square=square)
+            sync(device)
+            if device.type == "cuda" and seg.LAUNCHES != before + 1:
+                raise RuntimeError("the segment-sum wrapper did not "
+                                   "launch its kernel on a CUDA tensor")
+            want = seg.segment_sum_plain(values, ptr, o, square)
+            ok = bool(torch.equal(got, want))
+            k_ms = time_ms(seg.segment_sum, device, values, ptr, o, square)
+            p_ms = call_ms(lambda: seg.segment_sum_plain(values, ptr, o,
+                                                         square),
+                           device, runs=3, warmup=1)
+            lib_ms = None
+            if o is None:
+                terms = values * values if square else values.abs()
+                lib_ms = call_ms(lambda: torch.segment_reduce(
+                    terms, "sum", offsets=ptr), device)
+                del terms
+            rec = dict(name="segment_sum", dtype="float64",
+                       direction=f"{direction} {'a*a' if square else '|a|'}",
+                       segments=nseg, nnz=int(k.nnz), ok=ok, ms=k_ms,
+                       plain_call_ms=p_ms, library_call_ms=lib_ms,
+                       bound_ms=b_ms, bound_by=b_by)
+            log(f"segment_sum {rec['direction']}: {nseg} segments, "
+                f"same bits {ok}, kernel_ms {k_ms:.4f} bound_ms "
+                f"{b_ms:.4f} ({b_by}) plain per call {p_ms:.3f} ms, "
+                f"torch.segment_reduce per call {lib_ms}")
+            records.append(rec)
+    bad = [r for r in records if not r["ok"]]
+    if bad:
+        raise RuntimeError(f"segment-sum kernel disagrees with its plain "
+                           f"version: {bad}")
+    return records
+
+
+def scaling_phase(device, cells):
+    """Phase 20: the PDLP scaling's numpy and card routes on each cell's
+    standard-form K (`cells`: name -> (A, b)), default options, bit for
+    bit, with each route's seconds; then the segment-sum kernel on
+    block64k's scaled K."""
+    import torch
+    from highs_tpu_torch.options import HighsOptions
+    from highs_tpu_torch.solvers.pdlp.scaling import (scale_on_device,
+                                                      scale_problem)
+    opts = HighsOptions()
+    mode, passes = opts.pdlp_scaling_mode, opts.pdlp_ruiz_iterations
+    out = {}
+    scaled = {}
+    for name, (a, b) in cells.items():
+        k = standard_form_k(a, b)
+        t0 = time.perf_counter()
+        host, hv = scale_problem(k, mode, passes)
+        host_s = time.perf_counter() - t0
+        card_s = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            # on a card `scale_problem(k, mode, passes, device)` takes
+            # this route (phases 7 and 8 count it)
+            card, cv = scale_on_device(k, mode, passes, device)
+            sync(device)
+            card_s.append(time.perf_counter() - t0)
+        same = {"values": same_bits(card.data, host.data),
+                "row_scale": same_bits(cv.row_scale, hv.row_scale),
+                "col_scale": same_bits(cv.col_scale, hv.col_scale),
+                "ruiz_passes": cv.ruiz_passes == hv.ruiz_passes,
+                "structure": bool(
+                    (card.indices == host.indices).all() and
+                    (card.indptr == host.indptr).all())}
+        out[name] = dict(nnz=int(k.nnz), shape=list(k.shape),
+                         ruiz_passes=hv.ruiz_passes, host_s=host_s,
+                         card_s=card_s, same=same)
+        log(f"scaling {name}: {k.shape[0]}x{k.shape[1]}, {k.nnz} "
+            f"nonzeros, Ruiz passes {hv.ruiz_passes}; host route "
+            f"{host_s:.3f} s, card route {', '.join(f'{t:.3f}' for t in card_s)}"
+            f" s; same bits {same}")
+        if not all(same.values()):
+            raise RuntimeError(f"scaling {name}: the card route differs "
+                               f"from the host's: {same}")
+        scaled[name] = host
+        del k, card
+    out["segment_sum"] = segment_sum_records(scaled["block64k"], device)
+    out["peak_bytes"] = (torch.cuda.max_memory_allocated(device)
+                         if device.type == "cuda" else 0)
+    return out
 
 
 def feasibility_check(lp, sol):
@@ -2565,7 +2724,7 @@ def main() -> int:
         return 1
     import numpy as np
     from highs_tpu_torch.ops import (block_csr, cuda_build, onehot_spmv,
-                                     pdhg_step)
+                                     pdhg_step, segment_sum)
     from highs_tpu_torch.tools import gather_probe
     from highs_tpu_torch.tools.card import card_line
     from highs_tpu_torch.utils.gen_block_lp import UPPER, gen_block_lp
@@ -2585,6 +2744,7 @@ def main() -> int:
     onehot_spmv._lib()
     gather_probe._lib()
     pdhg_step._lib()
+    segment_sum._lib()
     for name, (secs, out) in cuda_build.BUILD_INFO.items():
         log(f"build {name}: nvcc {secs:.2f} s")
         for line in out.strip().splitlines():
@@ -2646,6 +2806,9 @@ def main() -> int:
                bc_iters)
     step_records, graphs = run("graphs", graphs_phase, device)
     check_timings({"pdhg_step": step_records})
+    scaling = run("scaling", scaling_phase, device,
+                  {"block64k": (a64, b64), "synth50k": (a50, b50)})
+    check_timings({"segment_sum": scaling["segment_sum"]})
 
     probe_head = [r for r in probe_records
                   if r["name"] == gather_probe.SHAPES[0][0]]
@@ -2686,18 +2849,30 @@ def main() -> int:
             "batch_variants": [r for r in batch["step_records"]
                                if r["name"] == name and "ms" in r]})
     lines["gather_probe"]["variants"] = probe_head
+    seg_records = scaling["segment_sum"]
+    lines["segment_sum"] = {
+        "launches": bc_launches["segment_sum"], "dtype": "float64",
+        "ok": all(r["ok"] for r in seg_records),
+        "ms": statistics.fmean(r["ms"] for r in seg_records),
+        "bound_ms": statistics.fmean(r["bound_ms"] for r in seg_records),
+        "bound_by": seg_records[0]["bound_by"], "path": "block64k",
+        "paths": {"block64k": bc_launches["segment_sum"],
+                  "synth50k": oh_launches["segment_sum"]},
+        "library": "torch.segment_reduce (rows; per call)",
+        "variants": seg_records}
     summary = {"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0],
          "replaces": KERNELS[name][1], **lines[name]}
         for name in ("block_csr_spmv", "onehot_spmv", "gather_probe",
-                     *step_kernels)],
+                     *step_kernels, "segment_sum")],
         "pdlp_walls": {"block64k": bc_walls, "synth50k": oh_walls,
                        "block64k_avg": avg_walls},
         "graphs": graphs,
         "formats": formats, "synth50k_seconds": oh_seconds, "ipm": ipm,
         "block64k_avg_seconds": avg_seconds, "batch": batch,
         "simplex": simplex, "qp": qp, "mip": mip, "mip_batch": mip_batch,
-        "interfaces": interfaces, "mesh": mesh, "phase_seconds": phase_s,
+        "interfaces": interfaces, "mesh": mesh, "scaling": scaling,
+        "phase_seconds": phase_s,
         "total_seconds": time.perf_counter() - t_start}
     log(json.dumps(summary))
     log(card_line())

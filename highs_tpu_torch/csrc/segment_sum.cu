@@ -1,0 +1,85 @@
+// Segment sums in the host's order, for the PDLP scaling on Hopper (sm_90a).
+//
+// Replaces no TPU kernel: the JAX package scales K on the host with numpy
+// (highs_tpu/solvers/pdlp/scaling.py), and the port's card route of that
+// scaling (highs_tpu_torch/solvers/pdlp/scaling.py `scale_on_device`)
+// must give the host's bits.  Its Pock-Chambolle and L2 passes sum |a| or
+// a * a over each row and each column of K.  The host sums with
+// np.bincount(ids, weights), which adds a segment's terms one after
+// another in array order, starting from 0; the order decides the bits,
+// and no library reduction promises one.  So one thread owns one segment
+// and adds its terms in that order, each product and each sum rounded by
+// itself: __dmul_rn and __dadd_rn, which nvcc never contracts into an FMA.
+//
+// Segment s is values[ptr[s]] .. values[ptr[s+1] - 1] (a row of the CSR),
+// or, with `order`, values[order[ptr[s]]] .. (a column, through a stable
+// permutation of the entries by column, so its terms come in CSR order).
+//
+// Bound: bytes.  A call reads each value once (8 B), each order entry once
+// (8 B) and each pointer once, and writes one f64 a segment; its
+// arithmetic is one add (and one multiply) a value.  A thread's loads are
+// independent of its running sum, so the unrolled loop keeps several in
+// flight; neighbouring threads walk neighbouring segments, whose cache
+// lines each serve a thread for several terms.
+//
+// Plain C interface for ctypes; the entry point launches on the given
+// stream, allocates nothing and returns cudaGetLastError().
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+
+template <bool kSquare, bool kOrdered>
+__global__ void __launch_bounds__(kThreads)
+segment_sum_kernel(const double* __restrict__ values,
+                   const long long* __restrict__ order,
+                   const long long* __restrict__ ptr, long long nseg,
+                   double* __restrict__ out) {
+  const long long s =
+      static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (s >= nseg) return;
+  const long long end = ptr[s + 1];
+  double acc = 0.0;
+#pragma unroll 8
+  for (long long k = ptr[s]; k < end; ++k) {
+    const double x = values[kOrdered ? order[k] : k];
+    acc = __dadd_rn(acc, kSquare ? __dmul_rn(x, x) : fabs(x));
+  }
+  out[s] = acc;
+}
+
+template <bool kSquare, bool kOrdered>
+void launch(const void* values, const void* order, const void* ptr,
+            long long nseg, void* out, cudaStream_t stream) {
+  const long long grid = (nseg + kThreads - 1) / kThreads;
+  segment_sum_kernel<kSquare, kOrdered>
+      <<<static_cast<unsigned int>(grid), kThreads, 0, stream>>>(
+          static_cast<const double*>(values),
+          static_cast<const long long*>(order),
+          static_cast<const long long*>(ptr), nseg,
+          static_cast<double*>(out));
+}
+
+}  // namespace
+
+// out[s] = sum over segment s of values^2 (square != 0) or |values|, in
+// segment order; `order` may be null (the identity).
+extern "C" int segment_sum_f64(const void* values, const void* order,
+                               const void* ptr, long long nseg, int square,
+                               void* out, void* stream) {
+  if (nseg > 0) {
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (square && order) {
+      launch<true, true>(values, order, ptr, nseg, out, st);
+    } else if (square) {
+      launch<true, false>(values, order, ptr, nseg, out, st);
+    } else if (order) {
+      launch<false, true>(values, order, ptr, nseg, out, st);
+    } else {
+      launch<false, false>(values, order, ptr, nseg, out, st);
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
+}

@@ -133,29 +133,6 @@ def pdlp_problem(lp: HighsLp, options: HighsOptions,
     dtype_name = _resolve_dtype(options, device)
     dtype = torch.float64 if dtype_name == "float64" else torch.float32
 
-    scaled_a, scales = scale_problem(
-        std.a, mode=options.pdlp_scaling_mode,
-        ruiz_iterations=options.pdlp_ruiz_iterations)
-    dr, dc = scales.row_scale, scales.col_scale
-
-    b_s = dr * std.b
-    c_s = dc * std.c
-    with np.errstate(invalid="ignore"):
-        lo_s = np.where(np.isfinite(std.col_lower), std.col_lower / dc,
-                        std.col_lower)
-        up_s = np.where(np.isfinite(std.col_upper), std.col_upper / dc,
-                        std.col_upper)
-
-    is_eq = (np.arange(std.num_row) < std.num_eq).astype(np.float64)
-    lo_fin = np.isfinite(std.col_lower).astype(np.float64)
-    up_fin = np.isfinite(std.col_upper).astype(np.float64)
-
-    # bounds must be finite-representable on device: replace +-inf by huge
-    big = np.asarray(np.finfo(np.float64 if dtype == torch.float64
-                              else np.float32).max / 4)
-    lo_dev = np.where(np.isfinite(lo_s), lo_s, -big)
-    up_dev = np.where(np.isfinite(up_s), up_s, big)
-
     # pad (n, m) to bucketed sizes; padded columns are fixed at 0 with
     # zero cost, padded rows are 0 = 0 equalities: exact no-ops for
     # every iterate and metric
@@ -177,6 +154,35 @@ def pdlp_problem(lp: HighsLp, options: HighsOptions,
         # row padding must also divide evenly across the mesh
         unit = 128 * shape[0]
         m_pad = ((m_pad + unit - 1) // unit) * unit
+
+    # after the mesh's checks, which raise before anything reaches a
+    # device; on a card the scaling runs there, in the host's bits
+    timer = getattr(options, "_timer", None)
+    with span(timer, "pdlp.scale"):
+        scaled_a, scales = scale_problem(
+            std.a, mode=options.pdlp_scaling_mode,
+            ruiz_iterations=options.pdlp_ruiz_iterations, device=device)
+    if scales.on_device and timer is not None:
+        timer.count("pdlp.scale_device")
+    dr, dc = scales.row_scale, scales.col_scale
+
+    b_s = dr * std.b
+    c_s = dc * std.c
+    with np.errstate(invalid="ignore"):
+        lo_s = np.where(np.isfinite(std.col_lower), std.col_lower / dc,
+                        std.col_lower)
+        up_s = np.where(np.isfinite(std.col_upper), std.col_upper / dc,
+                        std.col_upper)
+
+    is_eq = (np.arange(std.num_row) < std.num_eq).astype(np.float64)
+    lo_fin = np.isfinite(std.col_lower).astype(np.float64)
+    up_fin = np.isfinite(std.col_upper).astype(np.float64)
+
+    # bounds must be finite-representable on device: replace +-inf by huge
+    big = np.asarray(np.finfo(np.float64 if dtype == torch.float64
+                              else np.float32).max / 4)
+    lo_dev = np.where(np.isfinite(lo_s), lo_s, -big)
+    up_dev = np.where(np.isfinite(up_s), up_s, big)
 
     def padc(v, fill):
         return np.concatenate([v, np.full(n_pad - n_std, fill, dtype=v.dtype)])

@@ -42,9 +42,9 @@ ROUTE_SPANS = {
     "pdlp": ["run", "pass_model", "presolve", "presolve.setup",
              "presolve.singleton_row", "presolve.empty_col",
              "presolve.fixed_col", "presolve.probing", "presolve.build",
-             "solve", "pdlp.setup", "pdlp_round", "pdhg.power",
-             "pdhg.block", "pdhg.capture", "pdlp.oracle", "pdlp.recover",
-             "postsolve"],
+             "solve", "pdlp.setup", "pdlp.scale", "pdlp_round",
+             "pdhg.power", "pdhg.block", "pdhg.capture", "pdlp.oracle",
+             "pdlp.recover", "postsolve"],
     "ipm": ["run", "pass_model", "presolve", "presolve.setup",
             "presolve.build", "solve", "ipm_setup", "ipm.prepare",
             "ipm.start", "ipm_iterations", "ipm.recover", "postsolve"],
@@ -52,7 +52,8 @@ ROUTE_SPANS = {
               "batch.recover"],
 }
 PARENT = {"presolve": "run", "solve": "run", "postsolve": "run",
-          "pdlp.setup": "solve", "pdlp_round": "solve",
+          "pdlp.setup": "solve", "pdlp.scale": "pdlp.setup",
+          "pdlp_round": "solve",
           "pdlp.oracle": "solve", "pdlp.recover": "solve",
           "pdhg.power": "pdlp_round", "pdhg.block": "pdlp_round",
           "pdhg.capture": "pdhg.block", "ipm_setup": "solve",
