@@ -230,16 +230,16 @@ Phases, each of which fails the run (non-zero exit) when it fails:
             blocks with the graphs on (`tools/profile_block64k.py`).
 20. scaling  the PDLP scaling (`solvers/pdlp/scaling.py`, default
             mode 5: Ruiz, then L2) of block64k's and synth50k's
-            standard-form K on both routes: the card route's scaled
-            values, row and column scales and Ruiz passes equal the
-            numpy route's bit for bit, each route's seconds (host clock,
+            standard-form K on the card and in its CPU form: the card's
+            scaled values, row and column scales and Ruiz passes equal
+            the CPU form's bit for bit, each one's seconds (host clock,
             the card's ending in a synchronize), and the segment-sum
             kernel (`csrc/segment_sum.cu`) on block64k's scaled K, rows
             and columns, |a| and a * a: equal to its plain version bit
             for bit, its cold time beside the byte bound, the plain
             version's and one `torch.segment_reduce` call's (rows, a
-            yardstick only).  Phases 7 and 8 print the counter
-            `pdlp.scale_device` (one a PDLP solve on the card).
+            yardstick only).  Phases 7 and 8 print the span
+            `pdlp.scale`'s seconds.
 
 The PDLP phases (5-8, 11, 12, 18) run every ramped block as replays of
 captured CUDA graphs (one restart window, or one chunk of steps, and the
@@ -769,12 +769,8 @@ def solve_phase(name, a, b, c, upper, options, anchor, path_kernels,
     iters = int(h.getInfo().pdlp_iteration_count)
     timer = h.getTimer()
     pdhg_s = timer.read("pdlp_round")
-    log(f"{name}: pdlp.scale_device {timer.counter('pdlp.scale_device')} "
-        f"pdlp.scale {timer.read('pdlp.scale'):.3f} s of pdlp.setup "
-        f"{timer.read('pdlp.setup'):.3f} s")
-    if device.type == "cuda" and timer.counter("pdlp.scale_device") != 1:
-        raise RuntimeError(f"{name}: the PDLP scaling did not take the "
-                           f"card route once")
+    log(f"{name}: pdlp.scale {timer.read('pdlp.scale'):.3f} s of "
+        f"pdlp.setup {timer.read('pdlp.setup'):.3f} s")
     log(f"{name}: status {status.name} objective {h.getObjectiveValue()!r} "
         f"iterations {iters} restarts {timer.num_calls('pdlp_restart')} "
         f"seconds {seconds:.3f} iterations_per_s {iters / seconds:.1f} "
@@ -907,14 +903,13 @@ def segment_sum_records(k, device):
 
 
 def scaling_phase(device, cells):
-    """Phase 20: the PDLP scaling's numpy and card routes on each cell's
-    standard-form K (`cells`: name -> (A, b)), default options, bit for
-    bit, with each route's seconds; then the segment-sum kernel on
+    """Phase 20: the PDLP scaling on the card and in its CPU form on each
+    cell's standard-form K (`cells`: name -> (A, b)), default options,
+    bit for bit, with each one's seconds; then the segment-sum kernel on
     block64k's scaled K."""
     import torch
     from highs_tpu_torch.options import HighsOptions
-    from highs_tpu_torch.solvers.pdlp.scaling import (scale_on_device,
-                                                      scale_problem)
+    from highs_tpu_torch.solvers.pdlp.scaling import scale_problem
     opts = HighsOptions()
     mode, passes = opts.pdlp_scaling_mode, opts.pdlp_ruiz_iterations
     out = {}
@@ -922,14 +917,12 @@ def scaling_phase(device, cells):
     for name, (a, b) in cells.items():
         k = standard_form_k(a, b)
         t0 = time.perf_counter()
-        host, hv = scale_problem(k, mode, passes)
-        host_s = time.perf_counter() - t0
+        host, hv = scale_problem(k, mode, passes, "cpu")
+        cpu_s = time.perf_counter() - t0
         card_s = []
         for _ in range(3):
             t0 = time.perf_counter()
-            # on a card `scale_problem(k, mode, passes, device)` takes
-            # this route (phases 7 and 8 count it)
-            card, cv = scale_on_device(k, mode, passes, device)
+            card, cv = scale_problem(k, mode, passes, device)
             sync(device)
             card_s.append(time.perf_counter() - t0)
         same = {"values": same_bits(card.data, host.data),
@@ -940,15 +933,15 @@ def scaling_phase(device, cells):
                     (card.indices == host.indices).all() and
                     (card.indptr == host.indptr).all())}
         out[name] = dict(nnz=int(k.nnz), shape=list(k.shape),
-                         ruiz_passes=hv.ruiz_passes, host_s=host_s,
+                         ruiz_passes=hv.ruiz_passes, cpu_s=cpu_s,
                          card_s=card_s, same=same)
         log(f"scaling {name}: {k.shape[0]}x{k.shape[1]}, {k.nnz} "
-            f"nonzeros, Ruiz passes {hv.ruiz_passes}; host route "
-            f"{host_s:.3f} s, card route {', '.join(f'{t:.3f}' for t in card_s)}"
+            f"nonzeros, Ruiz passes {hv.ruiz_passes}; CPU form "
+            f"{cpu_s:.3f} s, card {', '.join(f'{t:.3f}' for t in card_s)}"
             f" s; same bits {same}")
         if not all(same.values()):
-            raise RuntimeError(f"scaling {name}: the card route differs "
-                               f"from the host's: {same}")
+            raise RuntimeError(f"scaling {name}: the card differs from "
+                               f"the CPU form: {same}")
         scaled[name] = host
         del k, card
     out["segment_sum"] = segment_sum_records(scaled["block64k"], device)

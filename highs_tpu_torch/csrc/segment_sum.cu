@@ -1,8 +1,8 @@
 // Segment sums in the host's order, for the PDLP scaling on Hopper (sm_90a).
 //
 // Replaces no TPU kernel: the JAX package scales K on the host with numpy
-// (highs_tpu/solvers/pdlp/scaling.py), and the port's card route of that
-// scaling (highs_tpu_torch/solvers/pdlp/scaling.py `scale_on_device`)
+// (highs_tpu/solvers/pdlp/scaling.py), and the port's torch route of that
+// scaling (highs_tpu_torch/solvers/pdlp/scaling.py `scale_problem`)
 // must give the host's bits.  Its Pock-Chambolle and L2 passes sum |a| or
 // a * a over each row and each column of K.  The host sums with
 // np.bincount(ids, weights), which adds a segment's terms one after

@@ -2,15 +2,15 @@
 or a * a over a CSR's values, each segment's terms added one after
 another, as numpy's `np.bincount(ids, weights)` adds them.
 
-The PDLP scaling's card route (`solvers/pdlp/scaling.py`
-`scale_on_device`) must give the host route's bits, and a sum's bits
+The PDLP scaling (`solvers/pdlp/scaling.py` `scale_problem`) must give
+the bits of the JAX package's numpy scaling, and a sum's bits
 depend on its order, so the sums are taken in the host's order: a row's
 terms in CSR order, a column's in the order of a stable permutation of
 the entries by column.  The kernel, `csrc/segment_sum.cu`, sums each
 segment in one thread with every product and sum rounded by itself (see
 the source for the design).  `segment_sum_plain` computes the same
-function, in the same order, with plain PyTorch operations; the CPU
-tests use it, and the chip smoke test holds the kernel against it.
+function, in the same order, with plain PyTorch operations; the scaling
+runs it on the CPU, and the chip smoke test holds the kernel against it.
 """
 from __future__ import annotations
 

@@ -1,8 +1,9 @@
 """Batched PDHG: solve many LP instances in one device program.
 
-Each instance is preprocessed and scaled on the host, padded to the
-batch's common bucket shape (padding is an exact no-op for the
-iteration, see wrapper.py), stacked along a leading batch dimension
+Each instance is preprocessed on the host, then scaled on the batch's
+device and padded to the batch's common bucket shape as the single
+solve does it (`wrapper.scale_std`; padding is an exact no-op for the
+iteration), stacked along a leading batch dimension
 (K dense per instance, (b, m_pad, n_pad)) and advanced by the
 single-instance 40-step restart windows under `torch.func.vmap`.  vmap,
 as `jax.vmap` in the JAX package, gives every instance its own
@@ -43,8 +44,7 @@ from .graph import EagerBlocks, GraphBlocks, on_one_card
 from .pdhg import (PdhgMetrics, PdhgProblem, PdhgState, RestartCtl,
                    _compute_metrics, power_method, restart_window)
 from .preprocess import preprocess_lp, recover_solution
-from .scaling import scale_problem
-from .wrapper import PdlpRunInfo, _bucket
+from .wrapper import PdlpRunInfo, _bucket, scale_std
 
 _VECTORS = tuple(f for f in PdhgProblem._fields if f not in ("k_op", "y_lo"))
 
@@ -134,47 +134,6 @@ def freeze_instances(state: PdhgState, frozen: torch.Tensor) -> PdhgState:
         y_anchor=torch.where(f, state.y, state.y_anchor))
 
 
-def _instance_arrays(std, options, n_pad, m_pad, np_dtype):
-    """One instance's scaled, padded problem as numpy arrays (dense K)
-    and its scale factors (dr, dc)."""
-    scaled_a, sc = scale_problem(
-        std.a, mode=options.pdlp_scaling_mode,
-        ruiz_iterations=options.pdlp_ruiz_iterations)
-    dr, dc = sc.row_scale, sc.col_scale
-    n_std, m_std = std.num_col, std.num_row
-
-    def padc(v, fill):
-        return np.concatenate(
-            [v, np.full(n_pad - n_std, fill, dtype=np.float64)])
-
-    def padr(v, fill):
-        return np.concatenate(
-            [v, np.full(m_pad - m_std, fill, dtype=np.float64)])
-
-    a_dense = np.zeros((m_pad, n_pad))
-    a_dense[:m_std, :n_std] = scaled_a.toarray()
-    with np.errstate(invalid="ignore"):
-        lo_s = np.where(np.isfinite(std.col_lower), std.col_lower / dc,
-                        std.col_lower)
-        up_s = np.where(np.isfinite(std.col_upper), std.col_upper / dc,
-                        std.col_upper)
-    big = np.finfo(np_dtype).max / 4
-    arrays = dict(
-        a=a_dense,
-        b=padr(dr * std.b, 0.0),
-        c=padc(dc * std.c, 0.0),
-        lo=padc(np.where(np.isfinite(lo_s), lo_s, -big), 0.0),
-        up=padc(np.where(np.isfinite(up_s), up_s, big), 0.0),
-        is_eq=padr((np.arange(m_std) < std.num_eq).astype(float), 1.0),
-        lo_fin=padc(np.isfinite(std.col_lower).astype(float), 1.0),
-        up_fin=padc(np.isfinite(std.col_upper).astype(float), 1.0),
-        inv_row_scale=padr(1.0 / dr, 1.0),
-        inv_col_scale=padc(1.0 / dc, 1.0),
-        norm_b=np.linalg.norm(std.b),
-        norm_c=np.linalg.norm(std.c))
-    return arrays, (dr, dc)
-
-
 class BatchStart(NamedTuple):
     """A batch ready for its first block: the stacked scaled problem, the
     cold state and restart control on the device, and what the host
@@ -201,13 +160,14 @@ def prepare_batch(lps: Sequence[HighsLp], options: HighsOptions,
     stds = [preprocess_lp(lp) for lp in lps]
     n_pad = _bucket(max(s.num_col for s in stds))
     m_pad = _bucket(max(s.num_row for s in stds))
-
-    per_instance = [_instance_arrays(std, options, n_pad, m_pad, np_dtype)
-                    for std in stds]
+    scaled = [scale_std(std, options, n_pad, m_pad, dtype, device)
+              for std in stds]
+    # each instance's vectors, and its K densified
+    arrays = [dict(sc.vectors(), a=sc.scaled_pad.toarray()) for sc in scaled]
 
     def stacked(name):
         return torch.as_tensor(
-            np.stack([arr[name] for arr, _ in per_instance]).astype(np_dtype),
+            np.stack([arr[name] for arr in arrays]).astype(np_dtype),
             device=device)
     problem = PdhgProblem(k_op=DenseMatrix(stacked("a")),
                           **{name: stacked(name) for name in _VECTORS})
@@ -241,7 +201,7 @@ def prepare_batch(lps: Sequence[HighsLp], options: HighsOptions,
         total_k=torch.zeros((b,), dtype=torch.int32, device=device),
         n_restarts=torch.zeros((b,), dtype=torch.int32, device=device))
     return BatchStart(problem, state, ctl, stds,
-                      [sc for _, sc in per_instance], norms_b, norms_c)
+                      [(sc.dr, sc.dc) for sc in scaled], norms_b, norms_c)
 
 
 def solve_lp_batch(lps: Sequence[HighsLp], options: HighsOptions,

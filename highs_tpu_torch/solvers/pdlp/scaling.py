@@ -11,10 +11,10 @@ With x = Dc x~ and y = Dr y~ the scaled problem is
     l~ = Dc^-1 l,  u~ = Dc^-1 u,
 and unscaling is x = Dc x~, y = Dr y~, z = Dc^-1 z~.
 
-The numpy functions below are the host route and the reference.  With a
-CUDA device, `scale_problem` takes the card route, `scale_on_device`: the
-same arithmetic in the same order on the card, so the scaled values and
-the scale vectors are the host route's bit for bit.
+One route, in torch on the device it is given: the JAX package's numpy
+scaling (`highs_tpu/solvers/pdlp/scaling.py`, the tests' reference) in the
+same arithmetic and the same order, so the scaled values and the scale
+vectors are its bits on every device.
 """
 from __future__ import annotations
 
@@ -31,119 +31,7 @@ from ...ops.segment_sum import segment_sum
 class ScalingVectors:
     row_scale: np.ndarray  # Dr diagonal
     col_scale: np.ndarray  # Dc diagonal
-    ruiz_passes: int = 0  # Ruiz passes run (the stop test may end early)
-    on_device: bool = False  # computed by the card route
-
-
-def _safe_inv_sqrt(v: np.ndarray) -> np.ndarray:
-    out = np.ones_like(v)
-    pos = v > 0
-    out[pos] = 1.0 / np.sqrt(v[pos])
-    return out
-
-
-def ruiz_scale(a: sp.spmatrix, iterations: int = 10):
-    """Ruiz equilibration in the infinity norm.
-
-    Works directly on the CSR data array with per-entry row/col ids —
-    per-iteration cost is three linear passes over nnz.  The former
-    diags@a@diags form cost two sparse matmuls plus a sparse abs/max
-    per iteration (~19s of the 25M-nnz block flagship's wall)."""
-    a = a.tocsr().copy()
-    a.sum_duplicates()
-    m, n = a.shape
-    row_scale = np.ones(m)
-    col_scale = np.ones(n)
-    row_of = np.repeat(np.arange(m, dtype=np.int64),
-                       np.diff(a.indptr))
-    col_of = a.indices
-    data = np.abs(a.data.astype(np.float64, copy=True))
-    sgn = np.sign(a.data)
-    passes = 0
-    for _ in range(iterations):
-        passes += 1
-        row_max = np.zeros(m)
-        np.maximum.at(row_max, row_of, data)
-        col_max = np.zeros(n)
-        np.maximum.at(col_max, col_of, data)
-        dr = _safe_inv_sqrt(row_max)
-        dc = _safe_inv_sqrt(col_max)
-        data *= dr[row_of]
-        data *= dc[col_of]
-        row_scale *= dr
-        col_scale *= dc
-        # converged when all norms within 1e-3 of 1
-        if (np.all(np.abs(1.0 - row_max[row_max > 0]) < 1e-3) and
-                np.all(np.abs(1.0 - col_max[col_max > 0]) < 1e-3)):
-            break
-    out = sp.csr_matrix((sgn * data, a.indices, a.indptr), shape=(m, n))
-    return out, row_scale, col_scale, passes
-
-
-def pock_chambolle_scale(a: sp.spmatrix):
-    """Pock-Chambolle diagonal scaling with alpha = 1:
-    Dr_ii = 1/sqrt(sum_j |a_ij|), Dc_jj = 1/sqrt(sum_i |a_ij|)."""
-    a = a.tocsr()
-    absd = np.abs(a.data)
-    m, n = a.shape
-    row_of = np.repeat(np.arange(m, dtype=np.int64),
-                       np.diff(a.indptr))
-    row_sum = np.bincount(row_of, weights=absd, minlength=m)
-    col_sum = np.bincount(a.indices, weights=absd, minlength=n)
-    dr = _safe_inv_sqrt(row_sum)
-    dc = _safe_inv_sqrt(col_sum)
-    out = sp.csr_matrix((a.data * dr[row_of] * dc[a.indices],
-                         a.indices, a.indptr), shape=(m, n))
-    return out, dr, dc
-
-
-def l2_scale(a: sp.spmatrix):
-    """Scale by sqrt of row/col 2-norms."""
-    a = a.tocsr()
-    m, n = a.shape
-    sq = a.data * a.data
-    row_of = np.repeat(np.arange(m, dtype=np.int64),
-                       np.diff(a.indptr))
-    row_norm = np.sqrt(np.bincount(row_of, weights=sq, minlength=m))
-    col_norm = np.sqrt(np.bincount(a.indices, weights=sq,
-                                   minlength=n))
-    dr = _safe_inv_sqrt(row_norm)
-    dc = _safe_inv_sqrt(col_norm)
-    out = sp.csr_matrix((a.data * dr[row_of] * dc[a.indices],
-                         a.indices, a.indptr), shape=(m, n))
-    return out, dr, dc
-
-
-def scale_problem(a: sp.spmatrix, mode: int = 5, ruiz_iterations: int = 10,
-                  device=None):
-    """Apply the combined scaling per `pdlp_scaling_mode` bitmask.
-
-    Returns (scaled_a, ScalingVectors), on the host.  `device` None or
-    the CPU runs the numpy route; a CUDA device runs the card route
-    (`scale_on_device`), which gives the same bits.
-    """
-    if (device is not None and torch.device(device).type == "cuda" and
-            mode & 7):
-        return scale_on_device(a, mode, ruiz_iterations, device)
-    m, n = a.shape
-    row_scale = np.ones(m)
-    col_scale = np.ones(n)
-    scaled = a.tocsr()
-    passes = 0
-    if mode & 1:
-        scaled, dr, dc, passes = ruiz_scale(scaled, ruiz_iterations)
-        row_scale *= dr
-        col_scale *= dc
-    if mode & 2:
-        scaled, dr, dc = pock_chambolle_scale(scaled)
-        row_scale *= dr
-        col_scale *= dc
-    if mode & 4:
-        scaled, dr, dc = l2_scale(scaled)
-        row_scale *= dr
-        col_scale *= dc
-    return scaled, ScalingVectors(row_scale=row_scale, col_scale=col_scale,
-                                  ruiz_passes=passes)
+    ruiz_passes: int  # Ruiz passes run (the stop test may end early)
 
 
 def _sqrt_dev(v: torch.Tensor) -> torch.Tensor:
@@ -156,16 +44,16 @@ def _sqrt_dev(v: torch.Tensor) -> torch.Tensor:
 
 
 def _inv_sqrt_dev(v: torch.Tensor) -> torch.Tensor:
-    """`_safe_inv_sqrt` on a device: an IEEE square root and division
-    (never rsqrt)."""
+    """1 / sqrt(v) where v > 0, else 1 (the reference's `_safe_inv_sqrt`):
+    an IEEE square root and division (never rsqrt)."""
     return torch.where(v > 0, torch.ones_like(v) / _sqrt_dev(v), 1.0)
 
 
 def _ruiz_dev(data, rows, cols, m, n, iterations):
-    """`ruiz_scale`'s passes over |a| (`data`, updated in place) with its
-    entries' row and column ids: the maxima are exact in any order, the
-    two multiplies and the running products keep the host's order, and
-    the stop test reads one flag a pass."""
+    """The reference's `ruiz_scale` passes over |a| (`data`, updated in
+    place) with its entries' row and column ids: the maxima are exact in
+    any order, the two multiplies and the running products keep the
+    reference's order, and the stop test reads one flag a pass."""
     row_scale = torch.ones(m, dtype=data.dtype, device=data.device)
     col_scale = torch.ones(n, dtype=data.dtype, device=data.device)
     passes = 0
@@ -191,8 +79,8 @@ def _ruiz_dev(data, rows, cols, m, n, iterations):
 
 def _sum_scale_dev(values, rows, cols, row_ptr, col_order, col_ptr,
                    square):
-    """`pock_chambolle_scale` (sums of |a|) or `l2_scale` (sums of a * a,
-    then a square root) on a device: each row's sum in CSR order, each
+    """The reference's `pock_chambolle_scale` (sums of |a|) or `l2_scale`
+    (sums of a * a, then a square root): each row's sum in CSR order, each
     column's in the order of its entries in the CSR, as np.bincount adds
     them.  Returns the rescaled values and (dr, dc)."""
     row_sum = segment_sum(values, row_ptr, square=square)
@@ -204,24 +92,27 @@ def _sum_scale_dev(values, rows, cols, row_ptr, col_order, col_ptr,
     return values * dr[rows] * dc[cols], dr, dc
 
 
-def scale_on_device(a: sp.spmatrix, mode: int, ruiz_iterations: int,
-                    device):
-    """`scale_problem`'s arithmetic on `device`: K's CSR values, column
-    indices and row pointer uploaded once, every enabled pass run there,
-    the scaled values brought back in one copy beside the host's own
-    indices and row pointer.  The scaled values and the scale vectors
-    equal the numpy route's bit for bit (a CUDA device sums rows and
-    columns with `csrc/segment_sum.cu`, the CPU with its plain version).
-    Nothing allocated here outlives the call."""
+def scale_problem(a: sp.spmatrix, mode: int, ruiz_iterations: int,
+                  device):
+    """Apply the combined scaling per the `pdlp_scaling_mode` bitmask
+    `mode` on `device`: (scaled_a, ScalingVectors), on the host.
+
+    K's CSR values, column indices and row pointer are uploaded once,
+    every enabled pass runs there, and the scaled values come back in one
+    copy beside the host's own indices and row pointer.  The scaled
+    values and the scale vectors equal the reference's bit for bit (a
+    CUDA device sums rows and columns with `csrc/segment_sum.cu`, the
+    CPU with its plain version).  Nothing allocated here outlives the
+    call."""
     device = torch.device(device)
     m, n = a.shape
-    if mode & 1:  # the canonical copy `ruiz_scale` makes
+    if mode & 1:  # the canonical copy the reference's `ruiz_scale` makes
         a = a.tocsr().copy()
         a.sum_duplicates()
     else:
         a = a.tocsr()
     if a.dtype != np.float64:
-        raise TypeError(f"the card route scales float64 values, not "
+        raise TypeError(f"the scaling takes float64 values, not "
                         f"{a.dtype}")
     row_ptr = torch.from_numpy(a.indptr).to(device, torch.int64)
     cols = torch.from_numpy(a.indices).to(device).long()
@@ -255,4 +146,4 @@ def scale_on_device(a: sp.spmatrix, mode: int, ruiz_iterations: int,
                         shape=(m, n))
     return out, ScalingVectors(row_scale=row_scale.cpu().numpy(),
                                col_scale=col_scale.cpu().numpy(),
-                               ruiz_passes=passes, on_device=True)
+                               ruiz_passes=passes)

@@ -94,17 +94,12 @@ def _resolve_dtype(options: HighsOptions, device: torch.device) -> str:
     return "float64" if device.type == "cpu" else "float32"
 
 
-class ScaledLp(NamedTuple):
-    """An LP with rows in the scaled, padded standard form that PDHG
-    solves (`pdlp_problem`): the cold round's device problem and the host
-    data the refinement rounds and the recovery read."""
-    problem: PdhgProblem
-    std: object  # preprocess_lp's standard form
-    dtype: torch.dtype
-    device: torch.device  # the vectors' (a mesh's first device)
-    mesh: object
-    n_pad: int
-    m_pad: int
+class ScaledStd(NamedTuple):
+    """`preprocess_lp`'s standard form scaled for PDHG and padded
+    (`scale_std`): the host data from which the single solve
+    (`pdlp_problem`) and the batch (`batch.prepare_batch`) build their
+    device problems."""
+    scaled_pad: sp.csr_matrix  # K scaled and padded, f64
     padc: Callable  # pad (and permute) a column vector, with a fill
     padr: Callable  # the same for a row vector
     dr: np.ndarray  # row and column scales
@@ -117,7 +112,79 @@ class ScaledLp(NamedTuple):
     lo_fin: np.ndarray
     up_fin: np.ndarray
     big: np.ndarray  # what stands for an infinite bound on the device
-    scaled_pad: sp.csr_matrix  # K scaled and padded, f64
+    norm_b: float  # ||b|| and ||c||, unscaled
+    norm_c: float
+
+    def vectors(self) -> dict:
+        """`PdhgProblem`'s vectors (every field but `k_op` and `y_lo`),
+        padded by `padc` and `padr`, as f64 host arrays; an infinite
+        bound stands as -+`big`."""
+        padc, padr, big = self.padc, self.padr, self.big
+        return dict(
+            b=padr(self.b_s, 0.0),
+            c=padc(self.c_s, 0.0),
+            lo=padc(np.where(np.isfinite(self.lo_s), self.lo_s, -big), 0.0),
+            up=padc(np.where(np.isfinite(self.up_s), self.up_s, big), 0.0),
+            is_eq=padr(self.is_eq, 1.0),
+            lo_fin=padc(self.lo_fin, 1.0),
+            up_fin=padc(self.up_fin, 1.0),
+            inv_row_scale=padr(1.0 / self.dr, 1.0),
+            inv_col_scale=padc(1.0 / self.dc, 1.0),
+            norm_b=self.norm_b,
+            norm_c=self.norm_c)
+
+
+def scale_std(std, options: HighsOptions, n_pad: int, m_pad: int,
+              dtype: torch.dtype, device) -> ScaledStd:
+    """`std` (`preprocess_lp`'s standard form) scaled on `device` by
+    `options.pdlp_scaling_mode` and padded to (m_pad, n_pad), for a solve
+    in `dtype`.  Padded columns are fixed at 0 with zero cost, padded
+    rows are 0 = 0 equalities: exact no-ops for every iterate and
+    metric.  Bounds must be finite on the device: an infinite one stands
+    as -+big, a quarter of `dtype`'s largest value."""
+    with span(getattr(options, "_timer", None), "pdlp.scale"):
+        scaled_a, scales = scale_problem(
+            std.a, options.pdlp_scaling_mode, options.pdlp_ruiz_iterations,
+            device)
+    dr, dc = scales.row_scale, scales.col_scale
+    n_std, m_std = std.num_col, std.num_row
+    with np.errstate(invalid="ignore"):
+        lo_s = np.where(np.isfinite(std.col_lower), std.col_lower / dc,
+                        std.col_lower)
+        up_s = np.where(np.isfinite(std.col_upper), std.col_upper / dc,
+                        std.col_upper)
+
+    def padc(v, fill):
+        return np.concatenate([v, np.full(n_pad - n_std, fill, dtype=v.dtype)])
+
+    def padr(v, fill):
+        return np.concatenate([v, np.full(m_pad - m_std, fill, dtype=v.dtype)])
+
+    scaled_pad = sp.csr_matrix(
+        (scaled_a.data, scaled_a.indices,
+         padr(scaled_a.indptr, scaled_a.indptr[-1])), shape=(m_pad, n_pad))
+    big = np.asarray(np.finfo(np.float64 if dtype == torch.float64
+                              else np.float32).max / 4)
+    return ScaledStd(
+        scaled_pad, padc, padr, dr, dc, dr * std.b, dc * std.c, lo_s, up_s,
+        is_eq=(np.arange(m_std) < std.num_eq).astype(np.float64),
+        lo_fin=np.isfinite(std.col_lower).astype(np.float64),
+        up_fin=np.isfinite(std.col_upper).astype(np.float64), big=big,
+        norm_b=np.linalg.norm(std.b), norm_c=np.linalg.norm(std.c))
+
+
+class ScaledLp(NamedTuple):
+    """An LP with rows in the scaled, padded standard form that PDHG
+    solves (`pdlp_problem`): the cold round's device problem and the host
+    data the refinement rounds and the recovery read."""
+    problem: PdhgProblem
+    std: object  # preprocess_lp's standard form
+    dtype: torch.dtype
+    device: torch.device  # the vectors' (a mesh's first device)
+    mesh: object
+    n_pad: int
+    m_pad: int
+    scaled: ScaledStd  # in bucketperm's orders where they apply
     perm_maps: Optional[tuple]  # bucketperm's inverse orders, else None
 
 
@@ -125,19 +192,14 @@ def pdlp_problem(lp: HighsLp, options: HighsOptions,
                  device=None) -> ScaledLp:
     """The problem that `solve_lp_pdlp` hands to its first `solve_pdhg`
     round for `lp` (which has rows), built on `device` (default CUDA):
-    standard form, scaling, padding and the operator in
+    standard form, scaling and padding (`scale_std`) and the operator in
     `options.tpu_matrix_format`, in the dtype that `tpu_dtype` resolves
     to, with the host data around it."""
     device = resolve_device(device)
     std = preprocess_lp(lp)
     dtype_name = _resolve_dtype(options, device)
     dtype = torch.float64 if dtype_name == "float64" else torch.float32
-
-    # pad (n, m) to bucketed sizes; padded columns are fixed at 0 with
-    # zero cost, padded rows are 0 = 0 equalities: exact no-ops for
-    # every iterate and metric
-    n_std, m_std = std.num_col, std.num_row
-    n_pad, m_pad = _bucket(n_std), _bucket(m_std)
+    n_pad, m_pad = _bucket(std.num_col), _bucket(std.num_row)
 
     # several devices (tpu_mesh_shape "d"): K's rows in d blocks, one per
     # device, every vector on the mesh's first device
@@ -156,47 +218,8 @@ def pdlp_problem(lp: HighsLp, options: HighsOptions,
         m_pad = ((m_pad + unit - 1) // unit) * unit
 
     # after the mesh's checks, which raise before anything reaches a
-    # device; on a card the scaling runs there, in the host's bits
-    timer = getattr(options, "_timer", None)
-    with span(timer, "pdlp.scale"):
-        scaled_a, scales = scale_problem(
-            std.a, mode=options.pdlp_scaling_mode,
-            ruiz_iterations=options.pdlp_ruiz_iterations, device=device)
-    if scales.on_device and timer is not None:
-        timer.count("pdlp.scale_device")
-    dr, dc = scales.row_scale, scales.col_scale
-
-    b_s = dr * std.b
-    c_s = dc * std.c
-    with np.errstate(invalid="ignore"):
-        lo_s = np.where(np.isfinite(std.col_lower), std.col_lower / dc,
-                        std.col_lower)
-        up_s = np.where(np.isfinite(std.col_upper), std.col_upper / dc,
-                        std.col_upper)
-
-    is_eq = (np.arange(std.num_row) < std.num_eq).astype(np.float64)
-    lo_fin = np.isfinite(std.col_lower).astype(np.float64)
-    up_fin = np.isfinite(std.col_upper).astype(np.float64)
-
-    # bounds must be finite-representable on device: replace +-inf by huge
-    big = np.asarray(np.finfo(np.float64 if dtype == torch.float64
-                              else np.float32).max / 4)
-    lo_dev = np.where(np.isfinite(lo_s), lo_s, -big)
-    up_dev = np.where(np.isfinite(up_s), up_s, big)
-
-    def padc(v, fill):
-        return np.concatenate([v, np.full(n_pad - n_std, fill, dtype=v.dtype)])
-
-    def padr(v, fill):
-        return np.concatenate([v, np.full(m_pad - m_std, fill, dtype=v.dtype)])
-
-    scaled_pad = sp.csr_matrix((scaled_a.data, scaled_a.indices,
-                                np.concatenate([
-                                    scaled_a.indptr,
-                                    np.full(m_pad - m_std,
-                                            scaled_a.indptr[-1],
-                                            dtype=scaled_a.indptr.dtype)])),
-                               shape=(m_pad, n_pad))
+    # device
+    scaled = scale_std(std, options, n_pad, m_pad, dtype, device)
     # bucket-permuted ELL (fmt "bucketperm"): bake the bucket row and
     # column orders into the PROBLEM (rows of K sorted by nonzero-count
     # bucket, columns by transpose bucket), so the bucket-ladder products
@@ -206,17 +229,14 @@ def pdlp_problem(lp: HighsLp, options: HighsOptions,
     perm_maps = None
     fmt = options.tpu_matrix_format
     if mesh is None and fmt == "bucketperm":
-        row_perm = linops.bucket_row_perm(scaled_pad)
-        col_perm = linops.bucket_row_perm(scaled_pad.T.tocsr())
-        scaled_pad = scaled_pad[row_perm][:, col_perm].tocsr()
-        padr_nat, padc_nat = padr, padc
-
-        def padr(v, fill):  # noqa: F811
-            return padr_nat(v, fill)[row_perm]
-
-        def padc(v, fill):  # noqa: F811
-            return padc_nat(v, fill)[col_perm]
-
+        k = scaled.scaled_pad
+        row_perm = linops.bucket_row_perm(k)
+        col_perm = linops.bucket_row_perm(k.T.tocsr())
+        padr_nat, padc_nat = scaled.padr, scaled.padc
+        scaled = scaled._replace(
+            scaled_pad=k[row_perm][:, col_perm].tocsr(),
+            padr=lambda v, fill: padr_nat(v, fill)[row_perm],
+            padc=lambda v, fill: padc_nat(v, fill)[col_perm])
         perm_maps = (np.argsort(row_perm), np.argsort(col_perm))
     if mesh is not None and (
             fmt in ("ell", "panelell", "blockcsr") or
@@ -226,33 +246,18 @@ def pdlp_problem(lp: HighsLp, options: HighsOptions,
         # (parallel/shard_ops.py): nothing replicated.  `choose` takes
         # ELL, where the JAX package takes the panel format off the CPU
         # (ROADMAP "Decisions")
-        k_op, _ = make_row_sharded(scaled_pad, mesh, "rows",
+        k_op, _ = make_row_sharded(scaled.scaled_pad, mesh, "rows",
                                    fmt="ell" if fmt == "choose" else fmt,
                                    dtype=dtype)
     else:
-        k_op = linops.from_scipy(scaled_pad, fmt=fmt, dtype=dtype,
+        k_op = linops.from_scipy(scaled.scaled_pad, fmt=fmt, dtype=dtype,
                                  device=device)
 
-    def dev(v):
-        return torch.as_tensor(v, dtype=dtype, device=device)
-
-    problem = PdhgProblem(
-        k_op=k_op,
-        b=dev(padr(b_s, 0.0)),
-        c=dev(padc(c_s, 0.0)),
-        lo=dev(padc(lo_dev, 0.0)),
-        up=dev(padc(up_dev, 0.0)),
-        is_eq=dev(padr(is_eq, 1.0)),
-        lo_fin=dev(padc(lo_fin, 1.0)),
-        up_fin=dev(padc(up_fin, 1.0)),
-        inv_row_scale=dev(padr(1.0 / dr, 1.0)),
-        inv_col_scale=dev(padc(1.0 / dc, 1.0)),
-        norm_b=dev(np.linalg.norm(std.b)),
-        norm_c=dev(np.linalg.norm(std.c)))
-
-    return ScaledLp(problem, std, dtype, device, mesh, n_pad, m_pad, padc,
-                    padr, dr, dc, b_s, c_s, lo_s, up_s, is_eq, lo_fin,
-                    up_fin, big, scaled_pad, perm_maps)
+    problem = PdhgProblem(k_op=k_op, **{
+        name: torch.as_tensor(v, dtype=dtype, device=device)
+        for name, v in scaled.vectors().items()})
+    return ScaledLp(problem, std, dtype, device, mesh, n_pad, m_pad, scaled,
+                    perm_maps)
 
 
 def solve_lp_pdlp(lp: HighsLp, options: HighsOptions,
@@ -286,10 +291,10 @@ def solve_lp_pdlp(lp: HighsLp, options: HighsOptions,
         s = pdlp_problem(lp, options, device)
     problem, std, dtype, device, mesh = (s.problem, s.std, s.dtype,
                                          s.device, s.mesh)
-    n_pad, m_pad, padc, padr = s.n_pad, s.m_pad, s.padc, s.padr
-    dr, dc, b_s, c_s, lo_s, up_s = s.dr, s.dc, s.b_s, s.c_s, s.lo_s, s.up_s
-    is_eq, lo_fin, up_fin, big = s.is_eq, s.lo_fin, s.up_fin, s.big
-    scaled_pad, perm_maps = s.scaled_pad, s.perm_maps
+    n_pad, m_pad, perm_maps, h = s.n_pad, s.m_pad, s.perm_maps, s.scaled
+    padc, padr, scaled_pad = h.padc, h.padr, h.scaled_pad
+    dr, dc, b_s, c_s, lo_s, up_s = h.dr, h.dc, h.b_s, h.c_s, h.lo_s, h.up_s
+    is_eq, lo_fin, up_fin, big = h.is_eq, h.lo_fin, h.up_fin, h.big
     n_std, m_std = std.num_col, std.num_row
     dtype_name = _resolve_dtype(options, device)
 

@@ -1,16 +1,18 @@
-"""The PDLP scaling's card route against its numpy route, bit for bit.
+"""The PDLP scaling's one route against the JAX package's, bit for bit.
 
-`scaling.scale_on_device` runs `scale_problem`'s Ruiz, Pock-Chambolle and
-L2 passes in torch on a device; `scale_problem` takes it on a CUDA device
-and keeps numpy elsewhere.  On the CPU the route runs with the segment
+`scaling.scale_problem` runs the Ruiz, Pock-Chambolle and L2 passes in
+torch on the device it is given.  On the CPU it sums with the segment
 sums' plain version (`ops/segment_sum.py`); on a card with the kernel
-(`csrc/segment_sum.cu`).  Either way the scaled values, the row and
-column scales and the Ruiz passes run must equal the numpy route's in
-every bit, for each mode and for matrices with empty rows and columns,
-unsorted and duplicate entries, and a Ruiz run that stops early.
+(`csrc/segment_sum.cu`).  On the CPU the scaled values, the structure and
+the row and column scales must equal the JAX package's numpy scaling
+(`highs_tpu/solvers/pdlp/scaling.py`) in every bit, for each mode and
+for matrices with empty rows and columns, unsorted and duplicate
+entries, and a Ruiz run that stops early; on a card they must equal the
+route's CPU form.  The single solve (`wrapper.pdlp_problem`) and the
+batch (`batch.prepare_batch`) both scale through it.
 
 The card tests skip without CUDA; on a card, without the repository's
-conftest:
+conftest (and without the JAX package, which only the CPU test reads):
 
     python -m pytest --noconftest tests/test_torch_pdlp_scaling.py -q -k card
 """
@@ -22,10 +24,10 @@ import torch
 from highs_tpu_torch.models.lp import HighsLp, HighsSparseMatrix
 from highs_tpu_torch.ops import segment_sum as seg
 from highs_tpu_torch.options import HighsOptions
-from highs_tpu_torch.solvers.pdlp import scaling, wrapper
+from highs_tpu_torch.solvers.pdlp import batch, scaling, wrapper
 from highs_tpu_torch.solvers.pdlp.preprocess import preprocess_lp
 from highs_tpu_torch.utils.gen_block_lp import block_lp
-from highs_tpu_torch.utils.gen_synth_lp import gen_synth_lp
+from highs_tpu_torch.utils.gen_synth_lp import gen_synth_lp, synth_lp
 from highs_tpu_torch.utils.timer import HighsTimer
 
 # the tests run in parallel worker processes on shared cores
@@ -101,6 +103,7 @@ def _same_bits(got: np.ndarray, want: np.ndarray) -> bool:
 
 
 def _assert_same(got, want):
+    """Scaled values, structure and both scale vectors, bit for bit."""
     (ga, gs), (wa, ws) = got, want
     assert _same_bits(ga.data, wa.data)
     assert np.array_equal(ga.indices, wa.indices)
@@ -108,28 +111,44 @@ def _assert_same(got, want):
     assert ga.shape == wa.shape
     assert _same_bits(gs.row_scale, ws.row_scale)
     assert _same_bits(gs.col_scale, ws.col_scale)
-    assert gs.ruiz_passes == ws.ruiz_passes
+
+
+def _ruiz_passes(name, mode):
+    if not mode & 1:
+        return 0
+    return 2 if name == "ruiz_stops_early" else 10
 
 
 @pytest.mark.parametrize("mode", MODES)
 @pytest.mark.parametrize("name", list(MATRICES))
 def test_device_route_plain_matches_numpy(name, mode):
+    # the reference imports JAX: inside the test, so that the card tests
+    # of this file run where the JAX package is not installed
+    from highs_tpu.solvers.pdlp.scaling import scale_problem as reference
     a = MATRICES[name]()
-    want = scaling.scale_problem(a, mode=mode, ruiz_iterations=10)
-    got = scaling.scale_on_device(a, mode, 10, CPU)
-    _assert_same(got, want)
-    assert got[1].on_device and not want[1].on_device
-    if name == "ruiz_stops_early" and mode & 1:
-        assert want[1].ruiz_passes == 2
-    elif mode & 1:
-        assert want[1].ruiz_passes == 10
+    got = scaling.scale_problem(a, mode, 10, CPU)
+    _assert_same(got, reference(a, mode=mode, ruiz_iterations=10))
+    assert got[1].ruiz_passes == _ruiz_passes(name, mode)
 
 
-def test_scale_problem_keeps_numpy_off_cuda():
-    a = _synth()
-    for device in (None, "cpu", CPU):
-        _, sv = scaling.scale_problem(a, mode=5, device=device)
-        assert not sv.on_device
+def test_prepare_batch_scales_as_scale_problem():
+    """Each instance of a batch, of two sizes padded to one shape, holds
+    the scales and the scaled K that `scale_problem` gives its standard
+    form on the batch's device."""
+    lps = [synth_lp(m=m, n=m + 16, seed=i)
+           for i, m in enumerate((96, 120, 150))]
+    opts = HighsOptions()
+    start = batch.prepare_batch(lps, opts, CPU)
+    k = start.problem.k_op.a.numpy()
+    for i, lp in enumerate(lps):
+        a, sv = scaling.scale_problem(
+            preprocess_lp(lp).a, opts.pdlp_scaling_mode,
+            opts.pdlp_ruiz_iterations, CPU)
+        dr, dc = start.scales[i]
+        assert _same_bits(dr, sv.row_scale) and _same_bits(dc, sv.col_scale)
+        m, n = a.shape
+        assert _same_bits(k[i, :m, :n], a.toarray())
+        assert not k[i, m:].any() and not k[i, :, n:].any()
 
 
 @pytest.mark.parametrize("square", [False, True])
@@ -174,29 +193,29 @@ def _lp_of(a):
                    a_matrix=HighsSparseMatrix.from_scipy(a.tocsc()), sense=1)
 
 
-def test_pdlp_problem_counts_the_card_route(monkeypatch):
-    """`pdlp_problem` scales in the span "pdlp.scale" and counts
-    "pdlp.scale_device" once where the card route ran: the CPU device
-    keeps numpy and counts none; the route forced onto the CPU gives
-    the same problem and counts one."""
+def test_pdlp_problem_scales_in_its_span(monkeypatch):
+    """`pdlp_problem` scales once, inside the span "pdlp.scale" of the
+    options' timer, and pads what `scale_problem` gives."""
     lp = _lp_of(_synth())
     opts = HighsOptions()
     opts._timer = timer = HighsTimer()
-    host = wrapper.pdlp_problem(lp, opts, device=CPU)
-    assert timer.counter("pdlp.scale_device") == 0
-    assert timer.num_calls("pdlp.scale") == 1
+    running = []
 
-    def forced(a, mode, ruiz_iterations, device=None):
-        return scaling.scale_on_device(a, mode, ruiz_iterations, device)
-    monkeypatch.setattr(wrapper, "scale_problem", forced)
-    card = wrapper.pdlp_problem(lp, opts, device=CPU)
-    assert timer.counter("pdlp.scale_device") == 1
-    assert timer.num_calls("pdlp.scale") == 2
-    assert _same_bits(card.scaled_pad.data, host.scaled_pad.data)
-    assert _same_bits(card.dr, host.dr) and _same_bits(card.dc, host.dc)
-    for field in ("b", "c", "lo", "up", "inv_row_scale", "inv_col_scale"):
-        assert torch.equal(getattr(card.problem, field),
-                           getattr(host.problem, field))
+    def watched(a, *args):
+        running.append(timer._clocks["pdlp.scale"].running)
+        return scaling.scale_problem(a, *args)
+    monkeypatch.setattr(wrapper, "scale_problem", watched)
+    s = wrapper.pdlp_problem(lp, opts, device=CPU)
+    assert running == [True] and timer.num_calls("pdlp.scale") == 1
+    want, sv = scaling.scale_problem(
+        preprocess_lp(lp).a, opts.pdlp_scaling_mode,
+        opts.pdlp_ruiz_iterations, CPU)
+    got = s.scaled
+    assert _same_bits(got.scaled_pad.data, want.data)
+    assert _same_bits(got.dr, sv.row_scale)
+    assert _same_bits(got.dc, sv.col_scale)
+    assert torch.equal(s.problem.inv_row_scale[:want.shape[0]],
+                       torch.from_numpy(1.0 / sv.row_scale).to(s.dtype))
 
 
 @pytest.fixture
@@ -209,15 +228,15 @@ def cuda_device():
 
 @pytest.mark.parametrize("mode", MODES)
 @pytest.mark.parametrize("name", list(MATRICES))
-def test_card_route_matches_numpy_on_card(cuda_device, name, mode):
+def test_card_route_matches_cpu_form(cuda_device, name, mode):
     a = MATRICES[name]()
-    want = scaling.scale_problem(a, mode=mode, ruiz_iterations=10)
+    want = scaling.scale_problem(a, mode, 10, CPU)
     before = seg.LAUNCHES
-    got = scaling.scale_problem(a, mode=mode, ruiz_iterations=10,
-                                device=cuda_device)
+    got = scaling.scale_problem(a, mode, 10, cuda_device)
     torch.cuda.synchronize()
     _assert_same(got, want)
-    assert got[1].on_device
+    assert got[1].ruiz_passes == want[1].ruiz_passes == _ruiz_passes(name,
+                                                                     mode)
     # two launches (rows, columns) for each of the Pock-Chambolle and L2
     assert seg.LAUNCHES - before == 2 * bin(mode & 6).count("1")
 
@@ -255,18 +274,17 @@ def _tensors(obj, prefix="k_op"):
 def test_block64k_on_card(cuda_device):
     """block64k (base 2024, 25.1 M nonzeros) through `pdlp_problem` on
     the card: its scaled values, scales and f32 operator equal those
-    built from the numpy route's scaling."""
+    built from the route's CPU form."""
     from highs_tpu_torch.ops import linops
     lp = block_lp()
     opts = HighsOptions()
     card = wrapper.pdlp_problem(lp, opts, device=cuda_device)
     std = preprocess_lp(lp)
     want, sv = scaling.scale_problem(
-        std.a, mode=opts.pdlp_scaling_mode,
-        ruiz_iterations=opts.pdlp_ruiz_iterations)
-    assert _same_bits(card.scaled_pad.data, want.data)
-    assert _same_bits(card.dr, sv.row_scale)
-    assert _same_bits(card.dc, sv.col_scale)
+        std.a, opts.pdlp_scaling_mode, opts.pdlp_ruiz_iterations, CPU)
+    assert _same_bits(card.scaled.scaled_pad.data, want.data)
+    assert _same_bits(card.scaled.dr, sv.row_scale)
+    assert _same_bits(card.scaled.dc, sv.col_scale)
     m, n = want.shape
     host_pad = sp.csr_matrix(
         (want.data, want.indices,
