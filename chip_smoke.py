@@ -240,6 +240,21 @@ Phases, each of which fails the run (non-zero exit) when it fails:
             version's and one `torch.segment_reduce` call's (rows, a
             yardstick only).  Phases 7 and 8 print the span
             `pdlp.scale`'s seconds.
+21. presolve presolve (`presolve/presolve.py`, default options) on the
+            card of each LP cell's bases (block64k: `block_lp` at 512
+            block-rows, seeds 2024 and 2025; synth50k: `synth_lp` at
+            50,000 x 50,000 and ipm20k: at 2,400 x 20,000, seeds 42 to
+            45): a digest of the status, stack, reduced LP and kept rows
+            and columns equal to the tree's before the device copy
+            (`PARENT_PRESOLVE`), one device copy of A a block64k base,
+            each base's seconds (host clock), counters and peak card
+            memory; then the segment-sum kernel's signed mode
+            (`signed_dot`) on block64k's A with the bounds its presolve
+            passed: equal to its plain version bit for bit and to scipy's
+            max(A, 0) @ l + min(A, 0) @ u and max(A, 0) @ u + min(A, 0) @ l,
+            its cold time beside the byte bound and the plain version's.
+            The signed mode's launches are read from the block64k,
+            synth50k and ipm_dense (ipm20k's shape) runs.
 
 The PDLP phases (5-8, 11, 12, 18) run every ramped block as replays of
 captured CUDA graphs (one restart window, or one chunk of steps, and the
@@ -278,6 +293,21 @@ KKT_TOL = 1e-7
 SOLVE_TIME_LIMIT = 600.0
 SOURCES = ["block_csr_spmv", "onehot_spmv", "gather_probe", "pdhg_step",
            "segment_sum"]
+# presolve's result on each LP cell's bases, as the first 16 hex digits
+# of `presolve_digest`, on the tree before the device copy (its rule
+# families on the host; an H100's machine): the copy must not move a bit
+PRESOLVE_BASES = {
+    "block64k": ("block", dict(nblocks=512), (2024, 2025)),
+    "synth50k": ("synth", dict(m=50000, n=50000), (42, 43, 44, 45)),
+    "ipm20k": ("synth", dict(m=2400, n=20000), (42, 43, 44, 45)),
+}
+PARENT_PRESOLVE = {
+    "block64k.2024": "06d2bc19e095f1b2", "block64k.2025": "06d2bc19e095f1b2",
+    "synth50k.42": "fef0d2d73be17c6d", "synth50k.43": "43daf92203d81249",
+    "synth50k.44": "072448b8460a9dca", "synth50k.45": "557bbd5b0750eada",
+    "ipm20k.42": "fa15e2de5ba3d90e", "ipm20k.43": "5151f23541984761",
+    "ipm20k.44": "4af89c3767959916", "ipm20k.45": "8396a9a22a343651",
+}
 # the PDLP iterations of the phases on the tree before the step kernels
 # and graphs (its chip_smoke.py on an H100): the graphs replay the same
 # arithmetic, so the counts must not move
@@ -329,6 +359,12 @@ KERNELS = {
     "segment_sum": ("highs_tpu_torch/csrc/segment_sum.cu",
                     "highs_tpu/solvers/pdlp/scaling.py:82 and :98 "
                     "(np.bincount on the host), no pl.pallas_call"),
+    # no TPU kernel: the JAX package's presolve takes its activity bounds
+    # with scipy on the host
+    "segment_signed_dot": ("highs_tpu_torch/csrc/segment_sum.cu",
+                           "highs_tpu/presolve/rules.py:325 and :819 "
+                           "(scipy csr_matvec on the host), no "
+                           "pl.pallas_call"),
 }
 # the cold-round problem of phases 7 and 8, for phase 19
 FIRST_ROUND = {}
@@ -684,6 +720,7 @@ def reset_launches():
     from highs_tpu_torch.tools import gather_probe
     block_csr.LAUNCHES = 0
     segment_sum.LAUNCHES = 0
+    segment_sum.SIGNED_LAUNCHES = 0
     gather_probe.LAUNCHES = 0
     onehot_spmv.LAUNCHES["onehot_spmv"] = 0
     for name in pdhg_step.LAUNCHES:
@@ -699,6 +736,7 @@ def read_launches():
             "gather_probe": gather_probe.LAUNCHES,
             "onehot_spmv": onehot_spmv.LAUNCHES["onehot_spmv"],
             "segment_sum": segment_sum.LAUNCHES,
+            "segment_signed_dot": segment_sum.SIGNED_LAUNCHES,
             **pdhg_step.LAUNCHES}
 
 
@@ -950,6 +988,180 @@ def scaling_phase(device, cells):
     return out
 
 
+def presolve_digest(result) -> str:
+    """SHA-256 over every bit of a `PresolveResult` that postsolve and
+    the solver read: the status, the stack, the reduced LP's arrays and
+    matrix, the kept rows and columns."""
+    import hashlib
+    import numpy as np
+    h = hashlib.sha256()
+
+    def feed(x):
+        if isinstance(x, (np.ndarray, np.generic)):
+            x = np.asarray(x)
+            h.update(f"{x.dtype.str}{x.shape}".encode())
+            h.update(np.ascontiguousarray(x).tobytes())
+        elif isinstance(x, (tuple, list)):
+            h.update(f"{type(x).__name__}{len(x)}".encode())
+            for y in x:
+                feed(y)
+        elif isinstance(x, float):
+            h.update(b"f" + np.float64(x).tobytes())
+        else:
+            h.update(f"{type(x).__name__}:{x!r}".encode())
+
+    feed(int(result.status))
+    feed(bool(result.reduced))
+    feed(list(result.stack))
+    if result.reduced:
+        lp = result.reduced_lp
+        for name in ("num_col", "num_row", "col_cost", "col_lower",
+                     "col_upper", "row_lower", "row_upper", "offset",
+                     "integrality"):
+            feed(getattr(lp, name))
+        feed([lp.a_matrix.start, lp.a_matrix.index, lp.a_matrix.value])
+        feed([result.keep_rows, result.keep_cols])
+    return h.hexdigest()
+
+
+def signed_dot_records(calls, device):
+    """The segment-sum kernel's signed mode on the CSR and bounds of
+    `calls` (each (values, cols, ptr, x1, x2) as presolve passed them):
+    against its plain version bit for bit, the first call also against
+    scipy's `csr_matvec` of max(A, 0) and min(A, 0), with its cold time,
+    the byte bound and the plain version's per-call time."""
+    import numpy as np
+    import scipy.sparse as sp
+    import torch
+    from highs_tpu_torch.ops import segment_sum as seg
+    from highs_tpu_torch.tools.card import bound_ms, call_ms, time_ms
+    records = []
+    for k, (values, cols, ptr, x1, x2) in enumerate(calls):
+        nnz, nseg, n = values.shape[0], ptr.shape[0] - 1, x1.shape[0]
+        # 12 B a value (value and column), ptr, x1 and x2 once, four sums
+        # a row; two products and two sums a value
+        nbytes = 12 * nnz + 8 * (nseg + 1) + 16 * n + 32 * nseg
+        b_ms, b_by = bound_ms(nbytes, 4 * nnz, torch.float64)
+        before = seg.SIGNED_LAUNCHES
+        got = seg.signed_dot(values, cols, ptr, x1, x2)
+        sync(device)
+        if device.type == "cuda" and seg.SIGNED_LAUNCHES != before + 1:
+            raise RuntimeError("the signed mode's wrapper did not launch "
+                               "its kernel on a CUDA tensor")
+        want = seg.signed_dot_plain(values, cols, ptr, x1, x2)
+        ok = bool(torch.equal(got.view(torch.int64), want.view(torch.int64)))
+        scipy_ok = None
+        if k == 0:
+            a = sp.csr_matrix((values.cpu().numpy(), cols.cpu().numpy(),
+                               ptr.cpu().numpy()), shape=(nseg, n))
+            lo, up = x1.cpu().numpy(), x2.cpu().numpy()
+            pos, neg = a.copy(), a.copy()
+            pos.data = np.maximum(pos.data, 0.0)
+            neg.data = np.minimum(neg.data, 0.0)
+            out = got.cpu()
+            scipy_ok = (same_bits((out[0] + out[1]).numpy(),
+                                  pos @ lo + neg @ up) and
+                        same_bits((out[2] + out[3]).numpy(),
+                                  pos @ up + neg @ lo))
+            del a, pos, neg
+        k_ms = time_ms(seg.signed_dot, device, values, cols, ptr, x1, x2)
+        p_ms = call_ms(lambda: seg.signed_dot_plain(values, cols, ptr, x1,
+                                                    x2),
+                       device, runs=3, warmup=1)
+        rec = dict(name="segment_signed_dot", dtype="float64",
+                   direction=f"rows, call {k}", segments=nseg, nnz=nnz,
+                   ok=ok, scipy_ok=scipy_ok, ms=k_ms, plain_call_ms=p_ms,
+                   library_call_ms=None, bound_ms=b_ms, bound_by=b_by)
+        log(f"segment_signed_dot call {k}: {nseg} rows, {nnz} values, same "
+            f"bits as plain {ok}, as scipy {scipy_ok}, kernel_ms "
+            f"{k_ms:.4f} bound_ms {b_ms:.4f} ({b_by}) plain per call "
+            f"{p_ms:.3f} ms")
+        records.append(rec)
+        del got, want
+    bad = [r for r in records if not r["ok"] or r["scipy_ok"] is False]
+    if not records or bad:
+        raise RuntimeError(f"the signed mode disagrees with its plain "
+                           f"version or scipy, or presolve never called "
+                           f"it: {bad}")
+    return records
+
+
+def presolve_phase(device):
+    """Phase 21: presolve of each LP cell's bases on the card, with the
+    digests of the tree before the device copy; then the signed mode on
+    block64k's A with the bounds its presolve passed."""
+    import torch
+    from highs_tpu_torch.models.lp import HighsLp, HighsSparseMatrix
+    from highs_tpu_torch.options import HighsOptions
+    from highs_tpu_torch.presolve import device as presolve_device
+    from highs_tpu_torch.presolve.presolve import presolve_lp
+    from highs_tpu_torch.utils.gen_block_lp import block_lp
+    from highs_tpu_torch.utils.gen_synth_lp import synth_lp
+    from highs_tpu_torch.utils.timer import HighsTimer
+
+    calls = []
+    kernel = presolve_device.signed_dot
+
+    def keep(values, cols, ptr, x1, x2):
+        calls.append((values, cols, ptr, x1.clone(), x2.clone()))
+        return kernel(values, cols, ptr, x1, x2)
+
+    out = {}
+    for cell, (kind, size, seeds) in PRESOLVE_BASES.items():
+        for seed in seeds:
+            name = f"{cell}.{seed}"
+            made = (block_lp if kind == "block" else synth_lp)(
+                **size, seed=seed)
+            a = made.a_matrix.to_scipy().tocsc()
+            m, n = a.shape
+            lp = HighsLp(num_col=n, num_row=m, col_cost=made.col_cost,
+                         col_lower=made.col_lower, col_upper=made.col_upper,
+                         row_lower=made.row_lower, row_upper=made.row_upper,
+                         a_matrix=HighsSparseMatrix.from_scipy(a), sense=1)
+            del made, a
+            opts = HighsOptions()
+            opts._timer = timer = HighsTimer()
+            if device.type == "cuda":
+                torch.cuda.reset_peak_memory_stats(device)
+            presolve_device.signed_dot = keep if name == "block64k.2024" \
+                else kernel
+            try:
+                t0 = time.perf_counter()
+                result = presolve_lp(lp, opts, device)
+                sync(device)
+                seconds = time.perf_counter() - t0
+            finally:
+                presolve_device.signed_dot = kernel
+            digest = presolve_digest(result)[:16]
+            rec = dict(digest=digest, same=digest == PARENT_PRESOLVE[name],
+                       seconds=seconds, stack=len(result.stack),
+                       reduced=bool(result.reduced),
+                       counters={k: timer.counter(k) for k in (
+                           "presolve.device_builds",
+                           "presolve.device_sweeps")},
+                       upload_s=timer.read("presolve.upload"),
+                       peak_bytes=(torch.cuda.max_memory_allocated(device)
+                                   if device.type == "cuda" else 0))
+            log(f"presolve {name}: {m}x{n}, {seconds:.3f} s (upload "
+                f"{rec['upload_s']:.3f} s), stack {rec['stack']}, reduced "
+                f"{rec['reduced']}, counters {rec['counters']}, peak "
+                f"{rec['peak_bytes']} B, digest {digest} (parent "
+                f"{PARENT_PRESOLVE[name]})")
+            out[name] = rec
+            del lp, result
+    bad = [name for name, r in out.items() if not r["same"]]
+    if bad:
+        raise RuntimeError(f"presolve differs from the parent tree's on "
+                           f"{bad}")
+    builds = [r["counters"]["presolve.device_builds"] for name, r in
+              out.items() if name.startswith("block64k")]
+    if builds != [1] * len(builds):
+        raise RuntimeError(f"block64k's presolve built {builds} copies of "
+                           f"A, not one")
+    out["signed_dot"] = signed_dot_records(calls, device)
+    return out
+
+
 def feasibility_check(lp, sol):
     """Relative f64 violation of L <= Ax <= U and l <= x <= u by the
     returned x, from the LP's data alone, against 1 + the norm of the
@@ -982,10 +1194,12 @@ def ipm_phase(name, lp, anchor, check, device):
     h.passModel(lp)
     dense0 = dict(solver.DENSE_FACTORS)
     banded0 = dict(banded_chol.FACTORS)
+    reset_launches()
     t0 = time.perf_counter()
     h.run()
     sync(device)
     seconds = time.perf_counter() - t0
+    launches = read_launches()
     dense = {k: solver.DENSE_FACTORS[k] - dense0[k] for k in dense0}
     banded = {k: banded_chol.FACTORS[k] - banded0[k] for k in banded0}
     status = h.getModelStatus()
@@ -1006,13 +1220,15 @@ def ipm_phase(name, lp, anchor, check, device):
                solve_s=rd.solve_time, ipm_setup_s=clocks["setup"],
                ipm_iterations_s=clocks["iterations"],
                ms_per_iteration=per_it, presolved=[m, n],
-               dense_factors=dense, banded_factors=banded)
+               dense_factors=dense, banded_factors=banded,
+               launches=launches)
     log(f"{name}: status {status.name} objective {rec['objective']!r} "
         f"ipm_iterations {iters} pdlp_iterations "
         f"{rec['pdlp_iterations']} seconds {seconds:.3f} presolve_s "
         f"{rd.presolve_time:.3f} solve_s {rd.solve_time:.3f} "
         f"(ipm setup {clocks['setup']:.3f}, iterations "
-        f"{clocks['iterations']:.3f}) presolved {m}x{n}")
+        f"{clocks['iterations']:.3f}) presolved {m}x{n} kernel_launches "
+        f"{launches}")
     log(f"{name}: ms per iteration: normal matrix {per_it['normal']:.3f} "
         f"factor {per_it['factor']:.3f} solves {per_it['solve']:.3f} rest "
         f"(host work and the elementwise chain) {per_it['rest']:.3f} of "
@@ -1688,7 +1904,8 @@ def mip_cfl_phase(device, anchors):
     from highs_tpu_torch.options import HighsOptions
     from highs_tpu_torch.tools.mip_anchors import model
     d = model("cfl")
-    reduced = presolve_lp(lp_from_numpy(d), HighsOptions()).reduced_lp
+    reduced = presolve_lp(lp_from_numpy(d), HighsOptions(),
+                          device).reduced_lp
     log(f"mip_cfl: {d['num_row']} rows, {reduced.num_row} after presolve "
         f"(the simplex gate is 10,000)")
     if not reduced.num_row > 10000:
@@ -2802,6 +3019,15 @@ def main() -> int:
     scaling = run("scaling", scaling_phase, device,
                   {"block64k": (a64, b64), "synth50k": (a50, b50)})
     check_timings({"segment_sum": scaling["segment_sum"]})
+    presolve = run("presolve", presolve_phase, device)
+    check_timings({"segment_signed_dot": presolve["signed_dot"]})
+    signed_paths = {"block64k": bc_launches["segment_signed_dot"],
+                    "synth50k": oh_launches["segment_signed_dot"],
+                    "ipm20k": ipm["ipm_dense"]["launches"][
+                        "segment_signed_dot"]}
+    if not all(signed_paths.values()):
+        raise RuntimeError(f"presolve's activity bounds did not launch the "
+                           f"signed mode on every LP path: {signed_paths}")
 
     probe_head = [r for r in probe_records
                   if r["name"] == gather_probe.SHAPES[0][0]]
@@ -2853,11 +3079,22 @@ def main() -> int:
                   "synth50k": oh_launches["segment_sum"]},
         "library": "torch.segment_reduce (rows; per call)",
         "variants": seg_records}
+    signed_records = presolve["signed_dot"]
+    lines["segment_signed_dot"] = {
+        "launches": bc_launches["segment_signed_dot"], "dtype": "float64",
+        "ok": all(r["ok"] and r["scipy_ok"] is not False
+                  for r in signed_records),
+        "ms": signed_records[0]["ms"],
+        "plain_call_ms": signed_records[0]["plain_call_ms"],
+        "bound_ms": signed_records[0]["bound_ms"],
+        "bound_by": signed_records[0]["bound_by"], "path": "block64k",
+        "paths": signed_paths, "library": None,
+        "variants": signed_records}
     summary = {"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0],
          "replaces": KERNELS[name][1], **lines[name]}
         for name in ("block_csr_spmv", "onehot_spmv", "gather_probe",
-                     *step_kernels, "segment_sum")],
+                     *step_kernels, "segment_sum", "segment_signed_dot")],
         "pdlp_walls": {"block64k": bc_walls, "synth50k": oh_walls,
                        "block64k_avg": avg_walls},
         "graphs": graphs,
@@ -2865,6 +3102,8 @@ def main() -> int:
         "block64k_avg_seconds": avg_seconds, "batch": batch,
         "simplex": simplex, "qp": qp, "mip": mip, "mip_batch": mip_batch,
         "interfaces": interfaces, "mesh": mesh, "scaling": scaling,
+        "presolve": {k: v for k, v in presolve.items()
+                     if k != "signed_dot"},
         "phase_seconds": phase_s,
         "total_seconds": time.perf_counter() - t_start}
     log(json.dumps(summary))

@@ -520,7 +520,8 @@ class Highs(HighsModelApi, HighsAnalysisApi):
         # or remap set members, so SOS models solve un-presolved
         if self._options.presolve != "off" and not getattr(lp, "sos",
                                                            None):
-            presolve_result = presolve_lp(lp, self._options)
+            presolve_result = presolve_lp(lp, self._options,
+                                          self._device)
             log_rule_use(self._options, self._log)
             if presolve_result.status in (
                     HighsModelStatus.kInfeasible,
@@ -727,7 +728,7 @@ class Highs(HighsModelApi, HighsAnalysisApi):
             self._presolve_stack = None
             self._model_status = HighsModelStatus.kModelEmpty
             return HighsStatus.kOk
-        result = presolve_lp(lp, self._options)
+        result = presolve_lp(lp, self._options, self._device)
         self._presolve_stack = result
         if result.status in (HighsModelStatus.kInfeasible,
                              HighsModelStatus.kUnbounded,

@@ -7,6 +7,10 @@ passes with a stack-replay postsolve
 the trivial-detection subset (empty rows/cols, inconsistent bounds);
 the full vectorized rule loop lives in `rules.py` and is applied when
 `presolve != off`.
+
+`presolve_lp` runs on the solve's device: it uploads the constraint
+matrix once (`device.py` `DeviceMatrix`), and the empty-row check and
+every rule family's sweeps over the nonzeros read that copy.
 """
 from __future__ import annotations
 
@@ -35,28 +39,42 @@ class PresolveResult:
     orig_num_col: int = 0
 
 
-def presolve_lp(lp: HighsLp, options: HighsOptions) -> PresolveResult:
+def presolve_lp(lp: HighsLp, options: HighsOptions,
+                device) -> PresolveResult:
+    """Presolve `lp`, its sweeps over the nonzeros on `device` (a torch
+    device or its name)."""
     tol = options.primal_feasibility_tolerance
     # inconsistent bounds
     if np.any(lp.col_lower > lp.col_upper + tol) or (
             lp.num_row and np.any(lp.row_lower > lp.row_upper + tol)):
         return PresolveResult(HighsModelStatus.kInfeasible, lp)
 
-    if lp.num_row:
-        with span(getattr(options, "_timer", None), "presolve.setup"):
-            a = lp.a_matrix.to_scipy().tocsr()
-        row_nnz = np.diff(a.indptr)
-        empty_rows = row_nnz == 0
-        if np.any(empty_rows):
-            bad = empty_rows & ((lp.row_lower > tol) | (lp.row_upper < -tol))
-            if np.any(bad):
-                return PresolveResult(HighsModelStatus.kInfeasible, lp)
-
+    timer = getattr(options, "_timer", None)
+    with span(timer, "presolve.setup"):
+        a = lp.a_matrix.to_scipy().tocsc()
     if options.presolve == "off":
+        # no sweeps follow: count the rows' stored entries on the host
+        if _empty_row_infeasible(
+                lp, np.bincount(a.indices, minlength=lp.num_row), tol):
+            return PresolveResult(HighsModelStatus.kInfeasible, lp)
         return PresolveResult(HighsModelStatus.kNotset, lp)
 
+    a.sum_duplicates()
+    from .device import DeviceMatrix
+    matrix = DeviceMatrix(a, device, timer)
+    if _empty_row_infeasible(lp, matrix.stored_row_counts(), tol):
+        return PresolveResult(HighsModelStatus.kInfeasible, lp)
+
     from .rules import run_presolve_rules
-    return run_presolve_rules(lp, options)
+    return run_presolve_rules(lp, options, matrix)
+
+
+def _empty_row_infeasible(lp: HighsLp, row_counts: np.ndarray,
+                          tol: float) -> bool:
+    """A row with no stored entry whose bounds exclude 0."""
+    empty = row_counts == 0
+    return bool(np.any(empty & ((lp.row_lower > tol) |
+                                (lp.row_upper < -tol))))
 
 
 def log_rule_use(options: HighsOptions, log) -> None:

@@ -36,6 +36,7 @@ from ..models.lp import HighsLp, HighsSparseMatrix
 from ..models.solution import HighsSolution
 from ..options import HighsOptions
 from ..utils.timer import span
+from .device import DeviceMatrix
 from .presolve import PresolveResult
 
 
@@ -102,7 +103,11 @@ class _RuleClocks:
             self.scope.__enter__()
 
 
-def run_presolve_rules(lp: HighsLp, options: HighsOptions) -> PresolveResult:
+def run_presolve_rules(lp: HighsLp, options: HighsOptions,
+                       matrix: DeviceMatrix) -> PresolveResult:
+    """The rule loop on `lp`, whose canonical CSC `matrix.host` is, with
+    every sweep over the nonzeros read from `matrix`'s copy on the
+    solve's device."""
     tol = options.primal_feasibility_tolerance
     m, n = lp.num_row, lp.num_col
     if n == 0 or lp.is_mip() and False:
@@ -119,10 +124,9 @@ def run_presolve_rules(lp: HighsLp, options: HighsOptions) -> PresolveResult:
         integ == int(HighsVarType.kSemiInteger))
 
     timer = getattr(options, "_timer", None)
-    with span(timer, "presolve.setup"):
-        a = lp.a_matrix.to_scipy().tocsc()
-        a.sum_duplicates()
-        a_csr = a.tocsr()
+    # `matrix.host` is the host's matrix, the authority for edits and the
+    # build: it keeps the entries of rows and columns that presolve
+    # removes, and the device copy's masks hide them
     cost = lp.col_cost.copy()
     cl = lp.col_lower.copy()
     cu = lp.col_upper.copy()
@@ -146,6 +150,7 @@ def run_presolve_rules(lp: HighsLp, options: HighsOptions) -> PresolveResult:
     sense = float(lp.sense)
 
     def col_rows(j):
+        a = matrix.host
         s, e = a.indptr[j], a.indptr[j + 1]
         idx = a.indices[s:e]
         val = a.data[s:e]
@@ -153,47 +158,12 @@ def run_presolve_rules(lp: HighsLp, options: HighsOptions) -> PresolveResult:
         return idx[keep], val[keep]
 
     def row_cols(i):
+        a_csr = matrix.host_csr()
         s, e = a_csr.indptr[i], a_csr.indptr[i + 1]
         idx = a_csr.indices[s:e]
         val = a_csr.data[s:e]
         keep = col_active[idx] & (val != 0.0)
         return idx[keep], val[keep]
-
-    # memoized masking: activity is MONOTONE (rows/cols only ever
-    # deactivate) and matrix edits replace `a` with a new object, so
-    # (id, active-row count, active-col count) keys the mask state
-    # exactly; the cache holds a reference to the source matrix so its
-    # id cannot be recycled.  Cuts the ~9 per-rule rebuilds per pass
-    # to one per actual state change.
-    _mask_cache: dict = {}
-
-    def masked_csc(mat):
-        """Copy of CSC `mat` with entries of inactive rows/cols zeroed
-        and eliminated.  Replaces the former diag-matmul masking
-        (diags(r) @ a @ diags(c)) — two sparse matmuls plus dia
-        conversions per call — with three linear passes over nnz."""
-        key = (id(mat), int(row_active.sum()), int(col_active.sum()))
-        hit = _mask_cache.get("csc")
-        if hit is not None and hit[0] == key:
-            return hit[1]
-        live = row_active[mat.indices] & np.repeat(
-            col_active, np.diff(mat.indptr))
-        d = np.where(live, mat.data, 0.0)
-        out = sp.csc_matrix((d, mat.indices.copy(),
-                             mat.indptr.copy()), shape=mat.shape)
-        out.eliminate_zeros()
-        _mask_cache["csc"] = (key, out, mat)
-        _mask_cache.pop("csr", None)
-        return out
-
-    def masked_csr(mat):
-        key = (id(mat), int(row_active.sum()), int(col_active.sum()))
-        hit = _mask_cache.get("csr")
-        if hit is not None and hit[0] == key:
-            return hit[1]
-        out = masked_csc(mat).tocsr()
-        _mask_cache["csr"] = (key, out, mat)
-        return out
 
     max_passes = 6
     infeasible = False
@@ -203,13 +173,8 @@ def run_presolve_rules(lp: HighsLp, options: HighsOptions) -> PresolveResult:
     for _pass in range(max_passes):
         changed = False
 
-        # rebuild row/col structures for active entries
-        # (cheap: a few sparse ops per pass)
         rule("setup")
-        a = masked_csc(a)
-        a_csr = a.tocsr()
-        row_nnz = np.diff(a_csr.indptr)
-        col_nnz = np.diff(a.indptr)
+        row_nnz = matrix.row_counts(row_active, col_active)
 
         rule("empty_row")
         # --- empty rows ---------------------------------------------------
@@ -302,16 +267,8 @@ def run_presolve_rules(lp: HighsLp, options: HighsOptions) -> PresolveResult:
         rule("empty_col")
         # --- empty columns -----------------------------------------------
         if _rule_on(options, PresolveRuleType.kEmptyCol):
-            # recompute active col nnz after fixed-col removal
-            live2 = (row_active[a.indices] &
-                     (a.data != 0)).astype(np.int64)
-            # per-column sums via reduceat; the sentinel keeps index n
-            # (trailing empty columns) valid, and empty segments —
-            # where reduceat returns arr[start] instead of 0 — are
-            # zeroed by the diff mask
-            col_nnz2 = np.add.reduceat(
-                np.concatenate([live2, [0]]), a.indptr[:-1])
-            col_nnz2 = np.where(np.diff(a.indptr) > 0, col_nnz2, 0)
+            # active col nnz after fixed-col removal
+            col_nnz2 = matrix.col_counts(row_active, col_active)
             empty_c = col_active & (col_nnz2 == 0)
             for j in np.nonzero(empty_c)[0]:
                 cj = sense * cost[j]  # minimization-sense cost
@@ -353,23 +310,12 @@ def run_presolve_rules(lp: HighsLp, options: HighsOptions) -> PresolveResult:
                             0.0)
             up_c = np.where(col_active & np.isfinite(eff_cu), eff_cu,
                             0.0)
-            act = a.copy().tocsr()
-            ap = act.copy()
-            ap.data = np.maximum(ap.data, 0.0)
-            an = act.copy()
-            an.data = np.minimum(an.data, 0.0)
-            minact = ap @ lo_c + an @ up_c
-            maxact = ap @ up_c + an @ lo_c
-            pat_p = act.copy()
-            pat_p.data = (pat_p.data > 0).astype(np.float64)
-            pat_n = act.copy()
-            pat_n.data = (pat_n.data < 0).astype(np.float64)
             inf_lo = (~np.isfinite(eff_cl) & col_active).astype(
                 np.float64)
             inf_up = (~np.isfinite(eff_cu) & col_active).astype(
                 np.float64)
-            n_min_inf = pat_p @ inf_lo + pat_n @ inf_up
-            n_max_inf = pat_p @ inf_up + pat_n @ inf_lo
+            minact, maxact, n_min_inf, n_max_inf = matrix.activity(
+                lo_c, up_c, inf_lo, inf_up)
             min_ok = np.where(n_min_inf > 0, -np.inf, minact)
             max_ok = np.where(n_max_inf > 0, np.inf, maxact)
             # infeasibility check
@@ -381,8 +327,9 @@ def run_presolve_rules(lp: HighsLp, options: HighsOptions) -> PresolveResult:
             redundant = row_active & \
                 (min_ok >= rl - tol * (1 + np.abs(rl))) & \
                 (max_ok <= ru + tol * (1 + np.abs(ru)))
-            # rows with no active entries handled by empty-row rule
-            redundant &= np.diff(a_csr.indptr) > 0
+            # rows with no active entries (at the pass's start) are the
+            # empty-row rule's
+            redundant &= row_nnz > 0
             for i in np.nonzero(redundant)[0]:
                 stack.append(("redundant_row", int(i)))
                 row_active[i] = False
@@ -396,8 +343,7 @@ def run_presolve_rules(lp: HighsLp, options: HighsOptions) -> PresolveResult:
         # integer cases by always substituting a continuous column
         # when one is present)
         if _rule_on(options, PresolveRuleType.kDoubletonEquation):
-            a_csr = masked_csr(a)
-            row_nnz = np.diff(a_csr.indptr)
+            row_nnz = matrix.row_counts(row_active, col_active)
             doubletons = np.nonzero(row_active & (row_nnz == 2) &
                                     np.isfinite(rl) & np.isfinite(ru) &
                                     (np.abs(ru - rl) <= tol))[0]
@@ -490,9 +436,8 @@ def run_presolve_rules(lp: HighsLp, options: HighsOptions) -> PresolveResult:
                 changed = True
             if d_rows:
                 delta = sp.csc_matrix(
-                    (d_vals, (d_rows, d_cols)), shape=a.shape)
-                a = (a + delta).tocsc()
-                a_csr = a.tocsr()
+                    (d_vals, (d_rows, d_cols)), shape=matrix.host.shape)
+                matrix.replace((matrix.host + delta).tocsc())
                 # substitutions rewrote matrix entries: new
                 # cancellation candidates may exist, so re-arm the
                 # sparsify scan even if a previous pass found nothing
@@ -503,58 +448,27 @@ def run_presolve_rules(lp: HighsLp, options: HighsOptions) -> PresolveResult:
         rule("duplicate_row")
         # --- duplicate (parallel) rows ------------------------------------
         if _rule_on(options, PresolveRuleType.kParallelRowsAndCols):
-            a_csr = masked_csr(a)
-            # vectorized candidate grouping by a 64-bit multiset hash of
-            # each row's (col, coeff/first-coeff) pairs; hash collisions
-            # are screened out by the exact verification below (the old
-            # per-row python tuple keys were ~10% of presolve time)
-            groups = {}
-            act = np.nonzero(row_active)[0]
-            cnt_all = np.diff(a_csr.indptr)
-            act = act[cnt_all[act] > 0]
-            if len(act):
-                first = a_csr.data[a_csr.indptr[act]]
-                nnz_tot = len(a_csr.data)
-                row_of = np.repeat(
-                    np.arange(a_csr.shape[0], dtype=np.int64),
-                    cnt_all)
-                first_of = np.zeros(a_csr.shape[0])
-                first_of[act] = first
-                with np.errstate(invalid="ignore", divide="ignore"):
-                    ratio = np.round(
-                        a_csr.data / first_of[row_of], 10)
-                q = np.uint64(0x9E3779B97F4A7C15)
-                h = (a_csr.indices.astype(np.uint64) * q) ^ \
-                    ratio.view(np.uint64)
-                with np.errstate(over="ignore"):
-                    h = (h ^ (h >> np.uint64(30))) * \
-                        np.uint64(0xBF58476D1CE4E5B9)
-                    rh = np.zeros(a_csr.shape[0], dtype=np.uint64)
-                    np.add.at(rh, row_of, h)
-                    rh = rh * q + cnt_all.astype(np.uint64)
-                for i in act:
-                    groups.setdefault(int(rh[i]), []).append(
-                        (int(i), float(first_of[i])))
+            # candidate groups by a 64-bit multiset hash of each row's
+            # (col, coeff/first-coeff) pairs, on the device; hash
+            # collisions are screened out by the exact verification
+            # below
+            groups = matrix.parallel_rows(row_active, col_active)
 
             def _rows_parallel(i1, i2):
-                s1, e1 = a_csr.indptr[i1], a_csr.indptr[i1 + 1]
-                s2, e2 = a_csr.indptr[i2], a_csr.indptr[i2 + 1]
-                if e1 - s1 != e2 - s2:
+                c1, v1 = row_cols(i1)
+                c2, v2 = row_cols(i2)
+                if len(c1) != len(c2):
                     return False
-                if not np.array_equal(a_csr.indices[s1:e1],
-                                      a_csr.indices[s2:e2]):
+                if not np.array_equal(c1, c2):
                     return False
-                v1 = a_csr.data[s1:e1]
-                v2 = a_csr.data[s2:e2]
                 lam = v2[0] / v1[0]
                 return bool(np.allclose(v2, lam * v1,
                                         rtol=1e-9, atol=1e-12))
 
-            for key, members in groups.items():
-                if len(members) < 2:
-                    continue
-                i1, v1 = members[0]
-                for i2, v2 in members[1:]:
+            for rows_g, firsts_g in groups:
+                i1, v1 = int(rows_g[0]), float(firsts_g[0])
+                for i2, v2 in zip(rows_g[1:].tolist(),
+                                  firsts_g[1:].tolist()):
                     if not _rows_parallel(i1, i2):
                         continue
                     lam = v2 / v1   # row2 = lam * row1
@@ -592,39 +506,19 @@ def run_presolve_rules(lp: HighsLp, options: HighsOptions) -> PresolveResult:
                 and not infeasible and _pass < 2:
             # first two passes only: the vectorized hash scan costs
             # ~5-10ms and merges rarely cascade beyond pass 1
-            a2 = masked_csc(a)
-            cnnz = np.diff(a2.indptr)
+            cnnz = matrix.col_counts(row_active, col_active)
             mergeable = col_active & (cnnz >= 2) & ~is_int & ~semi_mask
             if np.count_nonzero(mergeable) >= 2:
-                firstv = np.ones(n)
-                nzc = cnnz > 0
-                firstv[nzc] = a2.data[a2.indptr[:-1][nzc]]
-                col_of = np.repeat(np.arange(n), cnnz)
-                with np.errstate(invalid="ignore", divide="ignore"):
-                    ratio = np.round(a2.data / firstv[col_of], 10)
-                q = np.uint64(0x9E3779B97F4A7C15)
-                hh = (a2.indices.astype(np.uint64) * q) ^ \
-                    ratio.view(np.uint64)
-                with np.errstate(over="ignore"):
-                    hh = (hh ^ (hh >> np.uint64(30))) * \
-                        np.uint64(0xBF58476D1CE4E5B9)
-                    chash = np.zeros(n, dtype=np.uint64)
-                    np.add.at(chash, col_of, hh)
-                    chash = chash * q + cnnz.astype(np.uint64)
-                cgroups: dict = {}
-                for j in np.nonzero(mergeable)[0]:
-                    cgroups.setdefault(int(chash[j]), []).append(int(j))
+                cgroups = matrix.parallel_cols(row_active, col_active,
+                                               mergeable)
 
                 def _cols_parallel(j1, j2):
-                    s1, e1 = a2.indptr[j1], a2.indptr[j1 + 1]
-                    s2, e2 = a2.indptr[j2], a2.indptr[j2 + 1]
-                    if e1 - s1 != e2 - s2:
+                    r1, v1 = col_rows(j1)
+                    r2, v2 = col_rows(j2)
+                    if len(r1) != len(r2):
                         return None
-                    if not np.array_equal(a2.indices[s1:e1],
-                                          a2.indices[s2:e2]):
+                    if not np.array_equal(r1, r2):
                         return None
-                    v1 = a2.data[s1:e1]
-                    v2 = a2.data[s2:e2]
                     sc = v2[0] / v1[0]
                     if not np.isfinite(sc) or abs(sc) < 1e-8 or \
                             abs(sc) > 1e8:
@@ -637,11 +531,9 @@ def run_presolve_rules(lp: HighsLp, options: HighsOptions) -> PresolveResult:
                         return None
                     return float(sc)
 
-                for key, members in cgroups.items():
-                    if len(members) < 2:
-                        continue
-                    j1 = members[0]
-                    for j2 in members[1:]:
+                for members in cgroups:
+                    j1 = int(members[0])
+                    for j2 in members[1:].tolist():
                         if not col_active[j2] or not col_active[j1]:
                             continue
                         sc = _cols_parallel(j1, j2)
@@ -677,9 +569,7 @@ def run_presolve_rules(lp: HighsLp, options: HighsOptions) -> PresolveResult:
             # measurably strengthen downstream cut separation
             # (sp150x300d root bound 68.4 vs 63.1 with the cap, a
             # 257-node vs 13k-node tree)
-            a_csr = masked_csr(a)
-            a2c = a_csr.tocsc()
-            row_nnz = np.diff(a_csr.indptr)
+            row_nnz = matrix.row_counts(row_active, col_active)
             eq_rows = np.nonzero(row_active & (row_nnz >= 2) &
                                  (row_nnz <= 32) & np.isfinite(rl) &
                                  np.isfinite(ru) &
@@ -694,6 +584,8 @@ def run_presolve_rules(lp: HighsLp, options: HighsOptions) -> PresolveResult:
             edits = 0
             examined = 0
             stale: set = set()
+            col_nnz = matrix.col_counts(row_active, col_active) \
+                if len(eq_rows) else None
             for e in eq_rows[:100]:
                 if edits >= 50 or examined >= 600:
                     break
@@ -703,12 +595,11 @@ def run_presolve_rules(lp: HighsLp, options: HighsOptions) -> PresolveResult:
                 if len(ecols) < 2:
                     continue
                 # pivot on e's sparsest column (fewest other rows)
-                degs = np.diff(a2c.indptr)[ecols]
+                degs = col_nnz[ecols]
                 pivk = int(np.argmin(degs))
                 j0 = int(ecols[pivk])
                 v0 = float(evals[pivk])
-                s0, e0 = a2c.indptr[j0], a2c.indptr[j0 + 1]
-                for r in a2c.indices[s0:e0]:
+                for r in col_rows(j0)[0]:
                     r = int(r)
                     if r == int(e) or not row_active[r] or r in stale:
                         continue
@@ -756,8 +647,8 @@ def run_presolve_rules(lp: HighsLp, options: HighsOptions) -> PresolveResult:
                 _sparsify_off[0] = True
             if s_rows:
                 delta = sp.csc_matrix(
-                    (s_vals, (s_rows, s_cols)), shape=a.shape)
-                summed = (a + delta).tocsr()
+                    (s_vals, (s_rows, s_cols)), shape=matrix.host.shape)
+                summed = (matrix.host + delta).tocsr()
                 # snap cancellation residue to exact zero on the edited
                 # rows ONLY (the whole point of sparsify is that these
                 # entries leave the structure; a global snap could drop
@@ -767,8 +658,7 @@ def run_presolve_rules(lp: HighsLp, options: HighsOptions) -> PresolveResult:
                     seg = summed.data[s0:e0]
                     seg[np.abs(seg) <= 1e-11] = 0.0
                 summed.eliminate_zeros()
-                a = summed.tocsc()
-                a_csr = a.tocsr()
+                matrix.replace(summed.tocsc())
 
         rule("dependent_eq")
         # --- dependent equations --------------------------------------------
@@ -777,14 +667,16 @@ def run_presolve_rules(lp: HighsLp, options: HighsOptions) -> PresolveResult:
         # redundant when its rhs also cancels, else infeasible.)
         if _rule_on(options, PresolveRuleType.kDependentEquations) and \
                 _pass == 0:
-            a_csr = masked_csr(a)
-            eq_rows = np.nonzero(row_active & np.isfinite(rl) &
-                                 np.isfinite(ru) &
-                                 (np.abs(ru - rl) <= tol) &
-                                 (np.diff(a_csr.indptr) > 0))[0]
+            eq_rows = np.nonzero(
+                row_active & np.isfinite(rl) & np.isfinite(ru) &
+                (np.abs(ru - rl) <= tol) &
+                (matrix.row_counts(row_active, col_active) > 0))[0]
             dense = None
             if 2 <= len(eq_rows) <= 300 and n <= 4000:
-                dense = np.asarray(a_csr[eq_rows].todense())
+                dense = np.zeros((len(eq_rows), n))
+                for t, i in enumerate(eq_rows):
+                    cols_t, vals_t = row_cols(i)
+                    dense[t, cols_t] = vals_t
                 # fast path: one rank-revealing QR on the row block —
                 # full row rank (the overwhelmingly common case) means
                 # no dependent equations, skipping the O(k^2) python
@@ -843,7 +735,6 @@ def run_presolve_rules(lp: HighsLp, options: HighsOptions) -> PresolveResult:
         rule("forcing_row")
         # --- forcing rows --------------------------------------------------
         if _rule_on(options, PresolveRuleType.kForcingRow):
-            a_csr = masked_csr(a)
             # semi variables: effective activity bounds include 0, and
             # rows touching semi variables are excluded from forcing
             # (fixing a semi var "at its bound" has different
@@ -856,22 +747,15 @@ def run_presolve_rules(lp: HighsLp, options: HighsOptions) -> PresolveResult:
                             0.0)
             up_c = np.where(col_active & np.isfinite(eff_cu), eff_cu,
                             0.0)
-            ap = a_csr.copy(); ap.data = np.maximum(ap.data, 0.0)
-            an = a_csr.copy(); an.data = np.minimum(an.data, 0.0)
-            minact = ap @ lo_c + an @ up_c
-            maxact = ap @ up_c + an @ lo_c
-            pat_p = a_csr.copy(); pat_p.data = (pat_p.data > 0) * 1.0
-            pat_n = a_csr.copy(); pat_n.data = (pat_n.data < 0) * 1.0
             inf_lo = (~np.isfinite(eff_cl) & col_active).astype(float)
             inf_up = (~np.isfinite(eff_cu) & col_active).astype(float)
+            minact, maxact, n_min_inf, n_max_inf = matrix.activity(
+                lo_c, up_c, inf_lo, inf_up)
             if has_semi:
-                touches_semi = (np.asarray(
-                    (a_csr.astype(bool) @ semi_mask.astype(float))
-                ).ravel() > 0)
+                touches_semi = matrix.row_counts(
+                    row_active, col_active, cols=semi_mask) > 0
             else:
                 touches_semi = np.zeros(m, dtype=bool)
-            n_min_inf = pat_p @ inf_lo + pat_n @ inf_up
-            n_max_inf = pat_p @ inf_up + pat_n @ inf_lo
             # forcing at upper: min activity == ru -> every var sits at
             # its activity-minimizing bound; mirrored for rl
             # forcing must be detected near-exactly: propagated bounds
@@ -933,22 +817,23 @@ def run_presolve_rules(lp: HighsLp, options: HighsOptions) -> PresolveResult:
         rule("free_col_sub")
         # --- free column singleton substitution ---------------------------
         if _rule_on(options, PresolveRuleType.kFreeColSubstitution):
-            a2 = masked_csc(a)
-            col_nnz3 = np.diff(a2.indptr)
+            col_nnz3 = matrix.col_counts(row_active, col_active)
             cand = np.nonzero(col_active & (col_nnz3 == 1) &
                               ~np.isfinite(cl) & ~np.isfinite(cu) &
                               ~is_int)[0]
-            a_lil2 = None
             done_rows: set = set()
             for j in cand:
-                s, e = a2.indptr[j], a2.indptr[j + 1]
-                i = int(a2.indices[s])
+                # j's one live entry; none once its row left in this rule
+                rows_j, vals_j = col_rows(j)
+                if len(rows_j) == 0:
+                    continue
+                i = int(rows_j[0])
                 if i in done_rows or not row_active[i]:
                     continue
                 if not (np.isfinite(rl[i]) and np.isfinite(ru[i]) and
                         abs(ru[i] - rl[i]) <= tol * (1 + abs(rl[i]))):
                     continue
-                aij = float(a2.data[s])
+                aij = float(vals_j[0])
                 if abs(aij) < 1e-10:
                     continue
                 cols_i, vals_i = row_cols(i)
@@ -987,23 +872,16 @@ def run_presolve_rules(lp: HighsLp, options: HighsOptions) -> PresolveResult:
         if _rule_on(options, PresolveRuleType.kAggregator) and \
                 getattr(options, "presolve_aggregator", False) and \
                 not has_semi:
-            a2 = masked_csc(a)
-            a2r = a2.tocsr()
-            col_nnz4 = np.diff(a2.indptr)
+            a2r = matrix.live_csr(row_active, col_active)
+            col_nnz4 = matrix.col_counts(row_active, col_active)
             # --- vectorized implied column bounds from single rows ---
             # (reference HPresolve::isImpliedFree via impliedRowBounds)
             lo_c4 = np.where(col_active & np.isfinite(cl), cl, 0.0)
             up_c4 = np.where(col_active & np.isfinite(cu), cu, 0.0)
-            ap4 = a2r.copy(); ap4.data = np.maximum(ap4.data, 0.0)
-            an4 = a2r.copy(); an4.data = np.minimum(an4.data, 0.0)
-            minact4 = ap4 @ lo_c4 + an4 @ up_c4
-            maxact4 = ap4 @ up_c4 + an4 @ lo_c4
-            patp4 = a2r.copy(); patp4.data = (patp4.data > 0) * 1.0
-            patn4 = a2r.copy(); patn4.data = (patn4.data < 0) * 1.0
             infl4 = (~np.isfinite(cl) & col_active).astype(float)
             infu4 = (~np.isfinite(cu) & col_active).astype(float)
-            nmin4 = patp4 @ infl4 + patn4 @ infu4
-            nmax4 = patp4 @ infu4 + patn4 @ infl4
+            minact4, maxact4, nmin4, nmax4 = matrix.activity(
+                lo_c4, up_c4, infl4, infu4)
             coo_r = np.repeat(np.arange(m), np.diff(a2r.indptr))
             coo_c = a2r.indices
             coo_v = a2r.data
@@ -1054,7 +932,9 @@ def run_presolve_rules(lp: HighsLp, options: HighsOptions) -> PresolveResult:
             eq_mask4 = (row_active & np.isfinite(rl) & np.isfinite(ru)
                         & (np.abs(ru - rl) <= tol * (1 + np.abs(rl)))
                         ).astype(float)
-            in_eq4 = (patp4.T @ eq_mask4 + patn4.T @ eq_mask4) > 0
+            in_eq4 = matrix.col_counts(row_active, col_active,
+                                       pos_rows=eq_mask4 > 0,
+                                       neg_rows=eq_mask4 > 0) > 0
             cand = np.nonzero(col_active & ~is_int & implied_free &
                               in_eq4 &
                               (col_nnz4 >= 2) & (col_nnz4 <= 6))[0]
@@ -1164,8 +1044,8 @@ def run_presolve_rules(lp: HighsLp, options: HighsOptions) -> PresolveResult:
                 changed = True
             if g_rows:
                 delta = sp.csc_matrix(
-                    (g_vals, (g_rows, g_cols)), shape=a.shape)
-                summed = (a + delta).tocsr()
+                    (g_vals, (g_rows, g_cols)), shape=matrix.host.shape)
+                summed = (matrix.host + delta).tocsr()
                 # snap the exact cancellations of x_j's entries (and
                 # any incidental cancellation) on the edited rows
                 for r in sorted(set(g_rows)):
@@ -1173,8 +1053,7 @@ def run_presolve_rules(lp: HighsLp, options: HighsOptions) -> PresolveResult:
                     seg = summed.data[s0:e0]
                     seg[np.abs(seg) <= 1e-11] = 0.0
                 summed.eliminate_zeros()
-                a = summed.tocsc()
-                a_csr = a.tocsr()
+                matrix.replace(summed.tocsc())
 
         rule("dominated_col")
         # --- dominated columns / dual fixing -------------------------------
@@ -1186,14 +1065,13 @@ def run_presolve_rules(lp: HighsLp, options: HighsOptions) -> PresolveResult:
         # guaranteed reduced-cost sign => fix it at the matching bound.
         if _rule_on(options, PresolveRuleType.kDominatedCol) and \
                 not has_semi:
-            a2 = masked_csc(a)
-            y_can_pos = (np.isfinite(rl) & row_active).astype(float)
-            y_can_neg = (np.isfinite(ru) & row_active).astype(float)
-            pat_p = a2.copy(); pat_p.data = (pat_p.data > 0) * 1.0
-            pat_n = a2.copy(); pat_n.data = (pat_n.data < 0) * 1.0
+            y_can_pos = np.isfinite(rl) & row_active
+            y_can_neg = np.isfinite(ru) & row_active
             # counts per column of entries whose dual can push z_j down/up
-            dn_breakers = pat_p.T @ y_can_pos + pat_n.T @ y_can_neg
-            up_breakers = pat_p.T @ y_can_neg + pat_n.T @ y_can_pos
+            dn_breakers = matrix.col_counts(row_active, col_active,
+                                            y_can_pos, y_can_neg)
+            up_breakers = matrix.col_counts(row_active, col_active,
+                                            y_can_neg, y_can_pos)
             cmin = sense * cost
             z_ge_c = dn_breakers == 0   # (A'y)_j <= 0 always => z_j >= c_j
             z_le_c = up_breakers == 0   # z_j <= c_j always
@@ -1227,9 +1105,10 @@ def run_presolve_rules(lp: HighsLp, options: HighsOptions) -> PresolveResult:
         # HPresolve probing + implication extraction) ----------------------
         if is_mip and _rule_on(options, PresolveRuleType.kProbing) and \
                 _pass == 0 and not has_semi:
-            a2r = masked_csr(a)
             binaries = np.nonzero(col_active & is_int &
                                   (cl == 0.0) & (cu == 1.0))[0]
+            a2r = matrix.live_csr(row_active, col_active) \
+                if len(binaries) else None
             if len(binaries) and a2r.nnz:
                 from ..solvers.mip.propagate import Propagator
                 # deactivated rows keep stale bounds; mask them to
@@ -1238,7 +1117,7 @@ def run_presolve_rules(lp: HighsLp, options: HighsOptions) -> PresolveResult:
                 ru_act = np.where(row_active, ru, np.inf)
                 prop = Propagator(a2r, rl_act, ru_act, is_int, tol)
                 # probe the binaries appearing in the most rows first
-                col_counts = np.diff(a2r.tocsc().indptr)
+                col_counts = matrix.col_counts(row_active, col_active)
                 order = binaries[np.argsort(-col_counts[binaries])]
                 n_fixed = 0
                 for j in order[:100]:
@@ -1304,7 +1183,9 @@ def run_presolve_rules(lp: HighsLp, options: HighsOptions) -> PresolveResult:
     with span(timer, "presolve.build"):
         keep_rows = np.nonzero(row_active)[0]
         keep_cols = np.nonzero(col_active)[0]
-        a_red = a.tocsr()[keep_rows][:, keep_cols].tocsc()
+        a_red = matrix.host_csr()[keep_rows][:, keep_cols].tocsc()
+        # the host's matrix keeps the stored zeros the masks hid
+        a_red.eliminate_zeros()
         reduced = HighsLp(
             num_col=len(keep_cols), num_row=len(keep_rows),
             col_cost=cost[keep_cols],

@@ -26,6 +26,7 @@ from typing import Optional, Tuple
 import numpy as np
 
 from ..constants import HighsModelStatus
+from ..device import resolve_device
 from ..models.lp import HighsLp
 from ..models.solution import HighsBasis, HighsSolution
 from ..options import HighsOptions
@@ -73,7 +74,8 @@ def solve_lp(lp: HighsLp, options: HighsOptions, log=None,
     if presolve:
         from ..presolve.presolve import log_rule_use, presolve_lp
         with span(timer, "presolve"):
-            presolve_result = presolve_lp(lp, options)
+            presolve_result = presolve_lp(lp, options,
+                                          resolve_device(device))
         log_rule_use(options, log)
         if presolve_result.status in (
                 HighsModelStatus.kInfeasible, HighsModelStatus.kUnbounded,

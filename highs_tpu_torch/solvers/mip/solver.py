@@ -1967,7 +1967,7 @@ def solve_mip(lp: HighsLp, options: HighsOptions, log=None,
             if options.presolve != "off" and \
                     not getattr(restart_lp, "sos", None):
                 try:
-                    pres_r = _pre_lp(restart_lp, options)
+                    pres_r = _pre_lp(restart_lp, options, device)
                 except _NUMERICAL:
                     pres_r = None
                 if pres_r is not None and pres_r.status in (

@@ -95,7 +95,7 @@ def test_mps_written_by_port_matches_jax(tmp_path):
 def test_presolve_reduces_like_jax():
     d = _lp_dict()
     jres = jax_presolve(_jax_lp(d), JOptions())
-    tres = presolve_lp(lp_from_numpy(d), HighsOptions())
+    tres = presolve_lp(lp_from_numpy(d), HighsOptions(), "cpu")
     assert int(tres.status) == int(jres.status)
     assert tres.reduced and jres.reduced
     jl, tl = jres.reduced_lp, tres.reduced_lp

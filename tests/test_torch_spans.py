@@ -274,7 +274,7 @@ def test_presolve_counts_the_stack_by_rule():
                     a_matrix=HighsSparseMatrix.from_scipy(lp.a), sense=1)
     opts = HighsOptions()
     opts._timer = timer = HighsTimer()
-    result = presolve_lp(model, opts)
+    result = presolve_lp(model, opts, "cpu")
     assert result.reduced
     tags = collections.Counter(entry[0] for entry in result.stack)
     counted = collections.Counter()
