@@ -1186,14 +1186,15 @@ def ipm_phase(name, lp, anchor, check, device):
     KKT_TOL, the objective within 1e-6 of `anchor`, the Newton phases per
     iteration from the facade's clocks, and the factors by device."""
     import highs_tpu_torch
-    from highs_tpu_torch.solvers.ipm import banded_chol, solver
+    from highs_tpu_torch.solvers.ipm import solver
     from highs_tpu_torch.tools.card import FP64_TENSOR_FLOPS
 
     h = highs_tpu_torch.Highs(device=device)
     h.setOptionValue("time_limit", SOLVE_TIME_LIMIT)
     h.passModel(lp)
     dense0 = dict(solver.DENSE_FACTORS)
-    banded0 = dict(banded_chol.FACTORS)
+    sparse0 = dict(solver.SPARSE_FACTORS)
+    handoffs0 = solver.BANDED_HANDOFFS["gate"]
     reset_launches()
     t0 = time.perf_counter()
     h.run()
@@ -1201,7 +1202,8 @@ def ipm_phase(name, lp, anchor, check, device):
     seconds = time.perf_counter() - t0
     launches = read_launches()
     dense = {k: solver.DENSE_FACTORS[k] - dense0[k] for k in dense0}
-    banded = {k: banded_chol.FACTORS[k] - banded0[k] for k in banded0}
+    sparse = {k: solver.SPARSE_FACTORS[k] - sparse0[k] for k in sparse0}
+    handoffs = solver.BANDED_HANDOFFS["gate"] - handoffs0
     status = h.getModelStatus()
     info = h.getInfo()
     iters = int(info.ipm_iteration_count)
@@ -1220,7 +1222,8 @@ def ipm_phase(name, lp, anchor, check, device):
                solve_s=rd.solve_time, ipm_setup_s=clocks["setup"],
                ipm_iterations_s=clocks["iterations"],
                ms_per_iteration=per_it, presolved=[m, n],
-               dense_factors=dense, banded_factors=banded,
+               dense_factors=dense, sparse_factors=sparse,
+               banded_handoffs=handoffs,
                launches=launches)
     log(f"{name}: status {status.name} objective {rec['objective']!r} "
         f"ipm_iterations {iters} pdlp_iterations "
@@ -1232,8 +1235,9 @@ def ipm_phase(name, lp, anchor, check, device):
     log(f"{name}: ms per iteration: normal matrix {per_it['normal']:.3f} "
         f"factor {per_it['factor']:.3f} solves {per_it['solve']:.3f} rest "
         f"(host work and the elementwise chain) {per_it['rest']:.3f} of "
-        f"{per_it['iterations']:.3f}; dense factors {dense}, banded "
-        f"factors {banded} (by device)")
+        f"{per_it['iterations']:.3f}; dense factors {dense} (by device); "
+        f"factors of M assembled on the host {sparse} (by engine and "
+        f"device), banded precision-gate hand-offs {handoffs}")
     if dense["cuda"]:
         # the normal phase (the weighted copy of K, the full f64 GEMM
         # K Theta K' of 2 m^2 n operations, the diagonal add) read as a
@@ -1760,11 +1764,10 @@ _MIP_RUNS = []
 
 def mip_counts():
     """The IPM's solves and factors by device and engine so far."""
-    from highs_tpu_torch.solvers.ipm import banded_chol, solver
+    from highs_tpu_torch.solvers.ipm import solver
     return {"ipm_solves": dict(solver.SOLVES),
             "dense_factors": dict(solver.DENSE_FACTORS),
-            "banded_factors": dict(banded_chol.FACTORS),
-            "host_factors": dict(solver.HOST_FACTORS),
+            "sparse_factors": dict(solver.SPARSE_FACTORS),
             "ipm_routes": dict(solver.ROUTES)}
 
 

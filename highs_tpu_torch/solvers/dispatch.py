@@ -33,6 +33,7 @@ from ..options import HighsOptions
 from ..utils.timer import span
 from .classify import classify_inconclusive
 from .icrash import run_icrash
+from .ipm.solver import IPM_MAX_ROWS
 from .ipm.wrapper import solve_lp_ipm
 from .pdlp.wrapper import solve_lp_pdlp
 from .simplex.crossover import crossover_from_solution
@@ -182,7 +183,7 @@ def _solve_core(lp: HighsLp, options: HighsOptions, solver: str, log,
     _nnz = int(lp.a_matrix.num_nz)
     ipm_ok = ((lp.num_row <= 2500 and
                lp.num_row * (lp.num_col + lp.num_row) <= (1 << 26)) or
-              (lp.num_row <= 80000 and _nnz <= 2_000_000))
+              (lp.num_row <= IPM_MAX_ROWS and _nnz <= 2_000_000))
 
     if solver == "choose" and (
             lp.num_row <= 1500 or

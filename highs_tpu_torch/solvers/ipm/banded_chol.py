@@ -33,10 +33,6 @@ from ...device import resolve_device
 
 NB = 128
 
-# banded factors run, by device type: read like the kernels' launch
-# counters, so that a run can show where its Newton systems were factored
-FACTORS = {"cuda": 0, "cpu": 0}
-
 
 def _hcat(blocks: torch.Tensor) -> torch.Tensor:
     """(d, NB, NB) blocks side by side as one (NB, d * NB) matrix."""
@@ -213,7 +209,6 @@ class BandedCholesky:
                                device=self.device)
         self._ab = build_band(dst_ix, vals, pad_ix, self.nblk, self.w)
         self._lp = factor_band(self._ab)
-        FACTORS[self.device.type] += 1
         return self
 
     def _rhs(self, rhs: np.ndarray) -> torch.Tensor:

@@ -136,11 +136,18 @@ class IpmSettings:
 # the kernels' launch counters, so that a run can show that its dense
 # route ran on the card
 DENSE_FACTORS = {"cuda": 0, "cpu": 0}
-# IPM solves by the device type of their iterate, and the host factors of
-# the "ldl" route by engine, read the same way (the MIP's node LPs above
-# its simplex gate land here)
+# IPM solves by the device type of their iterate, read the same way (the
+# MIP's node LPs above its simplex gate land here)
 SOLVES = {"cuda": 0, "cpu": 0}
-HOST_FACTORS = {"superlu": 0, "ldl": 0}
+# the Newton factors of the routes that assemble M on the host ("ldl" and
+# "dense_m"), by engine and device: the banded f32 Cholesky
+# ("banded_<device>"), SuperLU and the native LDL' on the host ("superlu",
+# "ldl"), the dense Cholesky of the "dense_m" route ("dense_<device>")
+SPARSE_FACTORS = {"banded_cuda": 0, "banded_cpu": 0, "superlu": 0,
+                  "ldl": 0, "dense_cuda": 0, "dense_cpu": 0}
+# the banded factors that failed the precision gate, each handing the
+# rest of its solve to the host engines
+BANDED_HANDOFFS = {"gate": 0}
 # IPM solves by the Newton route their iterations ran
 ROUTES = {"chol": 0, "cg": 0, "ldl": 0, "dense_m": 0}
 # dense K built on the device from its nonzeros (`scaled_dense_k`), by
@@ -164,6 +171,16 @@ _BANDED_GATED: set = set()
 # from this many rows of M the "ldl" route tries the banded device
 # factor, then SuperLU; the native LDL' takes smaller ones
 LARGE_M_ROWS = 20000
+# the IPM gate: `choose` sends no LP of more rows to the IPM
+# (`solvers/dispatch.py`); up to it, from `LARGE_M_ROWS`, the "ldl" route
+# takes every pattern whose factor stays within the route's budget
+# (`_ldl_analysis`), and "cg" the rest.  The capped Jacobi-PCG stalls on
+# grid Laplacians (a 65,536-row EMD flow: PERF.md)
+IPM_MAX_ROWS = 80000
+# the largest dense copy of K (m x n_std f64 entries) a route may build,
+# so a wide (2500 x 5M) or very tall LP never materializes a multi-GB
+# array
+DENSE_K_ENTRIES = 50_000_000
 # below `LARGE_M_ROWS` rows, `choose` takes the "dense_m" route in place
 # of "ldl" where the symbolic LDL' factor of M would fill more than this
 # share of its lower triangle.  A sparse factor costs about the share
@@ -176,6 +193,10 @@ DENSE_M_FILL = 0.25
 # for the last 16 patterns: the MIP's node LPs share one pattern, so its
 # analysis runs once for all of them
 _FILL_CACHE: dict = {}
+# the symbolic LDL' of M under the "ldl" route's budget (`_ldl_analysis`)
+# for the last pattern of K, None where it blew up: the route's choice,
+# and the analysis that the starting point's factor then reuses
+_ANALYSIS: dict = {}
 
 
 def _pattern_key(a: sp.csr_matrix) -> tuple:
@@ -387,7 +408,9 @@ def _dense_m_newton(problem: IpmProblem, theta_x, diag_extra, phase):
     the iterate's device."""
     mmat = _host_normal(problem, theta_x, diag_extra, phase)
     with phase("factor"):
-        return _dense_solver(mmat, theta_x.device)
+        solve = _dense_solver(mmat, theta_x.device)
+    SPARSE_FACTORS["dense_" + theta_x.device.type] += 1
+    return solve
 
 
 def _sparse_newton(problem: IpmProblem, theta_x, diag_extra, reg_d,
@@ -422,6 +445,7 @@ def _sparse_newton(problem: IpmProblem, theta_x, diag_extra, reg_d,
                 # an error on the device propagates, it never turns
                 # into a silent hand-off to the host
                 banded.factor(mmat)
+                SPARSE_FACTORS["banded_" + device.type] += 1
                 # precision gate: the factor is f32, and an
                 # ill-conditioned normal matrix (late-IPM Theta swings;
                 # flow Laplacians) makes f32 refinement non-contracting.
@@ -435,11 +459,12 @@ def _sparse_newton(problem: IpmProblem, theta_x, diag_extra, reg_d,
                     np.sqrt(mmat.shape[0])
                 if not (np.isfinite(pres) and pres < 1e-6):
                     _BANDED_GATED.add(key)
+                    BANDED_HANDOFFS["gate"] += 1
                     banded = None
             if banded is None:
                 try:
                     splu = spla.splu(mmat)
-                    HOST_FACTORS["superlu"] += 1
+                    SPARSE_FACTORS["superlu"] += 1
                 except RuntimeError:  # exactly singular
                     splu = None
                 # a successful but near-singular factor can return
@@ -455,7 +480,7 @@ def _sparse_newton(problem: IpmProblem, theta_x, diag_extra, reg_d,
                 _LDL_CACHE[key] = h
             else:
                 h.factor(mmat, reg_floor=max(1e-12, reg_d))
-            HOST_FACTORS["ldl"] += 1
+            SPARSE_FACTORS["ldl"] += 1
 
     if banded is not None:
         # the band-matvec refinement runs on the device: each Newton rhs
@@ -500,10 +525,19 @@ def ipm_step(problem: IpmProblem, state: IpmState, regs,
     own (`mip/batch_nodes.py`).  `settings` = (sigma_min, sigma_max,
     ftb, theta_max).  `newton` picks the normal-equations solver
     ("chol", "cg", "ldl" or "dense_m", module docstring).  `clock` times
-    the Newton phases."""
+    the Newton phases; on the routes that assemble M on the host each
+    phase is also the profiler span "highs.ipm.<phase>", since the
+    clock's device events cannot see host work."""
+    spanned = newton in ("ldl", "dense_m")
+
+    @contextlib.contextmanager
     def phase(name):
-        return clock.phase(name) if clock is not None else \
-            contextlib.nullcontext()
+        with contextlib.ExitStack() as stack:
+            if clock is not None:
+                stack.enter_context(clock.phase(name))
+            if spanned:
+                stack.enter_context(span(None, "ipm." + name))
+            yield
     sigma_min, sigma_max, ftb, theta_max = settings
     if isinstance(regs, torch.Tensor):
         if newton != "chol":
@@ -673,12 +707,27 @@ def _host_gram(problem: IpmProblem) -> sp.spmatrix:
     return a @ a.T + sp.diags(_host(problem.slack_mask) + 1e-8)
 
 
+def _ldl_budget(nnz: int) -> Tuple[int, int]:
+    """The "ldl" route's budget of a symbolic analysis of a matrix of
+    `nnz` entries, as (work, fill): about 60x the pattern, past which a
+    direct factor loses to iterating and the ordering cost blows up."""
+    return 80 * nnz + 1_000_000, 60 * nnz + 1_000_000
+
+
 def _ldl_of_gram(gram: sp.csc_matrix) -> SparseLdl:
     """The native LDL' of K K' (+ diagonal) under the "ldl" route's
-    budget: about 60x the pattern, past which a direct factor loses to
-    iterating and the ordering cost blows up (raises LdlBlowup)."""
-    return SparseLdl(gram, max_work=80 * gram.nnz + 1_000_000,
-                     max_fill=60 * gram.nnz + 1_000_000)
+    budget (raises LdlBlowup past it)."""
+    work, fill = _ldl_budget(gram.nnz)
+    return SparseLdl(gram, max_work=work, max_fill=fill)
+
+
+def _pattern_gram(a: sp.csr_matrix) -> sp.csc_matrix:
+    """The pattern of M = K Theta K' + D, from K's pattern alone."""
+    pat = sp.csr_matrix((np.ones(a.nnz), a.indices, a.indptr),
+                        shape=a.shape)
+    gram = (pat @ pat.T + sp.identity(a.shape[0])).tocsc()
+    gram.sum_duplicates()
+    return gram
 
 
 def _fills_in(a: sp.csr_matrix) -> bool:
@@ -691,11 +740,8 @@ def _fills_in(a: sp.csr_matrix) -> bool:
     a = sp.csr_matrix(a)
     key = _pattern_key(a)
     if key not in _FILL_CACHE:
-        pat = sp.csr_matrix((np.ones(a.nnz), a.indices, a.indptr),
-                            shape=a.shape)
         m = a.shape[0]
-        gram = (pat @ pat.T + sp.identity(m)).tocsc()
-        gram.sum_duplicates()
+        gram = _pattern_gram(a)
         cap = int(DENSE_M_FILL * m * (m + 1) / 2)
         fills = (gram.nnz + m) // 2 > cap
         if not fills:
@@ -710,13 +756,62 @@ def _fills_in(a: sp.csr_matrix) -> bool:
     return _FILL_CACHE[key]
 
 
+def _ldl_analysis(a: sp.csr_matrix) -> Optional[SparseLdl]:
+    """The symbolic LDL' of M's pattern under the "ldl" route's budget,
+    from K's pattern alone; None where the analysis blows up.  Kept for
+    the last pattern, so that `starting_point_sparse` factors with it."""
+    a = sp.csr_matrix(a)
+    key = _pattern_key(a)
+    if key not in _ANALYSIS:
+        gram = _pattern_gram(a)
+        work, fill = _ldl_budget(gram.nnz)
+        try:
+            h = SparseLdl(gram, max_work=work, max_fill=fill,
+                          numeric=False)
+        except LdlBlowup:
+            h = None
+        _ANALYSIS.clear()
+        _ANALYSIS[key] = h
+    return _ANALYSIS[key]
+
+
+def newton_route(a: sp.spmatrix, option: str = "choose") -> str:
+    """The Newton route of an IPM solve whose standard form has the
+    matrix `a` (m x n_std), under the option `tpu_ipm_newton`: from the
+    sizes, the pattern of `a` and the option alone.  `choose` takes the
+    dense "chol" route up to 2,500 rows; below `LARGE_M_ROWS` "dense_m"
+    where the symbolic analysis finds that the LDL' factor fills in,
+    else "ldl"; up to `IPM_MAX_ROWS` "ldl" where the factor stays within
+    the route's own budget; "cg" the rest."""
+    if option in ("cg", "ldl", "dense_m"):
+        return option
+    if option == "cholesky":
+        return "chol"
+    m, n_std = a.shape
+    if m <= 2500 and m * max(1, n_std) <= DENSE_K_ENTRIES:
+        return "chol"
+    if m < LARGE_M_ROWS:
+        # a factor that fills in is cheaper dense on the device
+        return "dense_m" if _fills_in(a) else "ldl"
+    if m <= IPM_MAX_ROWS and _ldl_analysis(a) is not None:
+        return "ldl"
+    return "cg"
+
+
 def starting_point_sparse(problem: IpmProblem) -> IpmState:
-    """The starting point with K K' factored by the native LDL' (host);
-    the handle is cached so the first iteration refactors it in place.
-    Raises LdlBlowup on a fill-catastrophic pattern."""
+    """The starting point with K K' factored by the native LDL' (host),
+    on the route's symbolic analysis of this pattern where
+    `_ldl_analysis` made one; the handle is cached so the first
+    iteration refactors it in place.  Raises LdlBlowup on a
+    fill-catastrophic pattern."""
     gram = _host_gram(problem).tocsc()
     gram.sum_duplicates()
-    h = _ldl_of_gram(gram)
+    h = next((h for h in _ANALYSIS.values()
+              if h is not None and h.matches(gram)), None)
+    if h is None:
+        h = _ldl_of_gram(gram)
+    else:
+        h.factor(gram)
     _LDL_CACHE.clear()
     _LDL_CACHE[_pattern_key(problem.a.host)] = h
     return starting_point(problem, solve_gram=lambda r: torch.as_tensor(
@@ -836,29 +931,12 @@ def solve_lp_ipm_native(lp: HighsLp, options: HighsOptions, log=None,
 
             # the route is decided BEFORE materializing K: the sparse-direct
             # route never builds a dense copy
-            newton_opt = getattr(options, "tpu_ipm_newton", "choose")
-            # a dense copy of K is m x n_std f64: cap the dense working
-            # set so a wide (2500 x 5M) or very tall LP never
-            # materializes a multi-GB array
-            dense_ok = m * max(1, n_std) <= 50_000_000
-            if newton_opt in ("cg", "ldl", "dense_m"):
-                newton = newton_opt
-            elif newton_opt == "cholesky":
-                newton = "chol"
-            elif m <= 2500 and dense_ok:
-                newton = "chol"
-            elif m <= 60000:
-                newton = "ldl"
-                # below the banded engine's size the symbolic analysis decides:
-                # a factor that fills in is cheaper dense on the device
-                if m < LARGE_M_ROWS and _fills_in(std.a):
-                    newton = "dense_m"
-            else:
-                newton = "cg"
+            newton = newton_route(
+                std.a, getattr(options, "tpu_ipm_newton", "choose"))
             # "sparse_mode": K is never densified (SparseK); the CG route
             # supports sparse K, so large CG solves never densify either
             sparse_mode = newton in ("ldl", "dense_m") or (
-                newton == "cg" and not dense_ok)
+                newton == "cg" and m * max(1, n_std) > DENSE_K_ENTRIES)
 
             # geometric-mean equilibration for numerical stability; the
             # dense routes build K on the device from its nonzeros

@@ -24,7 +24,7 @@ import scipy.sparse.linalg as spla
 import torch
 
 import highs_tpu_torch
-from highs_tpu_torch.solvers.ipm import banded_chol, solver
+from highs_tpu_torch.solvers.ipm import solver
 from highs_tpu_torch.utils.gen_grid_flow_lp import grid_flow_lp
 from highs_tpu_torch.utils.gen_synth_lp import synth_lp
 
@@ -45,7 +45,7 @@ def profile(lp, device) -> dict:
     h = highs_tpu_torch.Highs(device=device)
     h.passModel(lp)
     dense0 = dict(solver.DENSE_FACTORS)
-    banded0 = dict(banded_chol.FACTORS)
+    sparse0 = dict(solver.SPARSE_FACTORS)
     t0 = time.perf_counter()
     h.run()
     if device.type == "cuda":
@@ -62,8 +62,8 @@ def profile(lp, device) -> dict:
                           ("iterations", "normal", "factor", "solve")},
         dense_factors={k: solver.DENSE_FACTORS[k] - dense0[k]
                        for k in dense0},
-        banded_factors={k: banded_chol.FACTORS[k] - banded0[k]
-                        for k in banded0})
+        sparse_factors={k: solver.SPARSE_FACTORS[k] - sparse0[k]
+                        for k in sparse0})
 
 
 def main() -> None:

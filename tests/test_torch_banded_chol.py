@@ -59,9 +59,7 @@ def test_factor_and_solves_match_jax(jax_banded):
     bc = BandedCholesky.from_spd(lap, device="cpu")
     assert bc is not None and (bc.nblk, bc.w) == (jb.nblk, jb.w)
     np.testing.assert_array_equal(bc.perm, jb.perm)
-    before = banded_chol.FACTORS["cpu"]
     bc.factor(lap)
-    assert banded_chol.FACTORS["cpu"] == before + 1
     want = np.asarray(jb._l)
     got = bc.lblocks.numpy()
     assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
@@ -125,9 +123,7 @@ def test_card_factor_matches_cpu(cuda_device):
     lap = _laplacian(90)
     runs = {}
     for dev in (cuda_device, "cpu"):
-        before = banded_chol.FACTORS[torch.device(dev).type]
         bc = BandedCholesky.from_spd(lap, device=dev).factor(lap)
-        assert banded_chol.FACTORS[torch.device(dev).type] == before + 1
         rhs = np.random.default_rng(4).standard_normal(lap.shape[0])
         runs[str(dev)] = (bc.lblocks.cpu().numpy(), bc.solve_refined(rhs),
                           rhs)

@@ -344,17 +344,22 @@ def test_banded_caches_follow_the_pattern_and_the_solve(monkeypatch):
 
     def run(lp):
         """Banded factors and structures built by one solve."""
-        factors0 = banded_chol.FACTORS["cpu"]
+        counts0 = dict(solver.SPARSE_FACTORS)
+        handoffs0 = solver.BANDED_HANDOFFS["gate"]
         built0, superlu0 = len(built), len(superlu)
         st, _, info = solver.solve_lp_ipm_native(
             lp, _options(tpu_ipm_newton="ldl"), device="cpu")
         assert int(st) == int(HighsModelStatus.kOptimal)
         assert info.newton == "ldl"
-        factors = banded_chol.FACTORS["cpu"] - factors0
+        grew = {k: solver.SPARSE_FACTORS[k] - counts0[k] for k in counts0}
+        factors = grew["banded_cpu"]
         # the iteration whose banded factor failed the gate also ran
-        # SuperLU
+        # SuperLU, and counts one hand-off
         gated = len(solver._BANDED_GATED)
+        assert solver.BANDED_HANDOFFS["gate"] - handoffs0 == gated
+        assert grew["superlu"] == len(superlu) - superlu0
         assert factors - gated + len(superlu) - superlu0 == info.iterations
+        assert grew["ldl"] == grew["banded_cuda"] == 0
         return factors, len(built) - built0
 
     assert run(grid_flow_lp(20))[0] >= 1
@@ -412,7 +417,7 @@ def _dense_factor_run(device):
     lp = grid_flow_lp(40)
     opts = {"tpu_ipm_newton": "dense_m"}
     dense0 = dict(solver.DENSE_FACTORS)
-    host0 = dict(solver.HOST_FACTORS)
+    sparse0 = dict(solver.SPARSE_FACTORS)
     st, _, info = solver.solve_lp_ipm_native(lp, _options(**opts),
                                              device=device)
     kind = torch.device(device).type
@@ -420,7 +425,9 @@ def _dense_factor_run(device):
     assert info.newton == "dense_m"
     # every factor a dense one on the device, none on the host
     assert solver.DENSE_FACTORS[kind] - dense0[kind] >= info.iterations
-    assert solver.HOST_FACTORS == host0
+    grew = {k: solver.SPARSE_FACTORS[k] - sparse0[k] for k in sparse0}
+    assert grew == {**dict.fromkeys(grew, 0),
+                    "dense_" + kind: info.iterations}
     return info
 
 
