@@ -58,9 +58,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
             the objective within 1e-6 of scipy's HiGHS
             (`tools/ipm_anchors.py`);
 10. ipm_sparse the 240 x 240 grid min-cost flow (57,600 rows) the same
-            way, which the IPM solves by its sparse route (banded factor
-            on the card while its f32 probe holds, then SuperLU on the
-            host): kOptimal in IPM iterations only, an independent f64
+            way, which the IPM solves by its sparse route (the banded f64
+            factor on the card as replayed CUDA graphs, the starting
+            point's and every iteration's, with no hand-off to the host
+            by the Newton residual's gate): kOptimal in IPM iterations
+            only, an independent f64
             check of L <= Ax <= U and l <= x <= u (<= 1e-7 relative), the
             objective within 1e-6 of scipy's HiGHS IPM.  Both IPM phases
             print their iterations and seconds, and per iteration the
@@ -68,7 +70,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
             rest (host work and the elementwise chain); the dense one
             the normal phase's full-GEMM f64 rate and the share of the
             FP64 tensor peak its useful (symmetric) operations make, the
-            sparse one the banded factors run on the card;
+            sparse one the banded factors run on the card, the graphs'
+            captures and replays and the starting point's factor;
 11. block64k_avg block64k through `Highs().run()` with solver "pdlp" (the
             average-iterate engine) and every other option at its default
             (block-CSR, an f32 cold round and f64 refinement): kOptimal,
@@ -1186,7 +1189,7 @@ def ipm_phase(name, lp, anchor, check, device):
     KKT_TOL, the objective within 1e-6 of `anchor`, the Newton phases per
     iteration from the facade's clocks, and the factors by device."""
     import highs_tpu_torch
-    from highs_tpu_torch.solvers.ipm import solver
+    from highs_tpu_torch.solvers.ipm import banded_chol, solver
     from highs_tpu_torch.tools.card import FP64_TENSOR_FLOPS
 
     h = highs_tpu_torch.Highs(device=device)
@@ -1194,6 +1197,8 @@ def ipm_phase(name, lp, anchor, check, device):
     h.passModel(lp)
     dense0 = dict(solver.DENSE_FACTORS)
     sparse0 = dict(solver.SPARSE_FACTORS)
+    start0 = dict(solver.START_FACTORS)
+    graphs0 = banded_chol.GRAPHS.copy()
     handoffs0 = solver.BANDED_HANDOFFS["gate"]
     reset_launches()
     t0 = time.perf_counter()
@@ -1203,6 +1208,8 @@ def ipm_phase(name, lp, anchor, check, device):
     launches = read_launches()
     dense = {k: solver.DENSE_FACTORS[k] - dense0[k] for k in dense0}
     sparse = {k: solver.SPARSE_FACTORS[k] - sparse0[k] for k in sparse0}
+    start = {k: solver.START_FACTORS[k] - start0[k] for k in start0}
+    graphs = dict(banded_chol.GRAPHS - graphs0)
     handoffs = solver.BANDED_HANDOFFS["gate"] - handoffs0
     status = h.getModelStatus()
     info = h.getInfo()
@@ -1223,6 +1230,7 @@ def ipm_phase(name, lp, anchor, check, device):
                ipm_iterations_s=clocks["iterations"],
                ms_per_iteration=per_it, presolved=[m, n],
                dense_factors=dense, sparse_factors=sparse,
+               start_factors=start, banded_graphs=graphs,
                banded_handoffs=handoffs,
                launches=launches)
     log(f"{name}: status {status.name} objective {rec['objective']!r} "
@@ -1237,7 +1245,8 @@ def ipm_phase(name, lp, anchor, check, device):
         f"(host work and the elementwise chain) {per_it['rest']:.3f} of "
         f"{per_it['iterations']:.3f}; dense factors {dense} (by device); "
         f"factors of M assembled on the host {sparse} (by engine and "
-        f"device), banded precision-gate hand-offs {handoffs}")
+        f"device), banded precision-gate hand-offs {handoffs}; starting "
+        f"point factors {start}; banded graphs {graphs}")
     if dense["cuda"]:
         # the normal phase (the weighted copy of K, the full f64 GEMM
         # K Theta K' of 2 m^2 n operations, the diagonal add) read as a
@@ -1292,10 +1301,30 @@ def ipm_dense_phase(device):
 
 
 def ipm_sparse_phase(device):
+    """ipm_phase on the grid flow, and the banded f64 factor on the card
+    in every factor of the solve: the starting point's and each
+    iteration's, no hand-off to the host, one capture of the factor's
+    and the solve's graphs and a replay for each factor and solve."""
     from highs_tpu_torch.utils.gen_grid_flow_lp import grid_flow_lp
     lp = grid_flow_lp(GRID_SIDE)
-    return ipm_phase("ipm_sparse", lp, IPM_SPARSE_OBJECTIVE,
-                     lambda sol: feasibility_check(lp, sol), device)
+    rec = ipm_phase("ipm_sparse", lp, IPM_SPARSE_OBJECTIVE,
+                    lambda sol: feasibility_check(lp, sol), device)
+    iters, sparse = rec["ipm_iterations"], rec["sparse_factors"]
+    graphs = rec["banded_graphs"]
+    served = {**dict.fromkeys(sparse, 0), "banded_" + device.type: iters}
+    if sparse != served or rec["banded_handoffs"] or \
+            rec["start_factors"]["banded_" + device.type] != 1:
+        raise RuntimeError(
+            f"ipm_sparse: the banded factor did not serve every factor: "
+            f"{sparse}, start {rec['start_factors']}, hand-offs "
+            f"{rec['banded_handoffs']}")
+    if device.type == "cuda" and (
+            graphs.get("captures") != 2 or
+            graphs.get("factor_replays") != iters + 1 or
+            graphs.get("solve_replays", 0) < 6 * iters):
+        raise RuntimeError(f"ipm_sparse: graph counts {graphs} for "
+                           f"{iters} iterations")
+    return rec
 
 
 def valid_basis(h, lp) -> bool:

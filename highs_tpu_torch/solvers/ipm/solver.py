@@ -16,12 +16,13 @@ contributes only a diagonal on inequality rows).  Four routes:
           the solver's device, where the dense K is scattered from its
           scaled nonzeros (`scaled_dense_k`);
   "cg"    Jacobi-preconditioned conjugate gradients, matrix-free in M;
-  "ldl"   M is assembled sparse on the host from a scipy copy of K and
-          factored there, as in the JAX package: the banded f32
-          Cholesky on the device (`banded_chol.py`) where M is banded
-          and well enough conditioned, else SuperLU, else the native
-          LDL' (`sparse_ldl.py`).  The iterate and the products with K
-          stay on the device (K as sparse CSR tensors, `SparseK`);
+  "ldl"   M is assembled sparse on the host from a scipy copy of K:
+          factored by the banded f64 Cholesky on the device
+          (`banded_chol.py`, replayed CUDA graphs on a card) where M is
+          banded and the first Newton solve's residual holds, else on
+          the host by SuperLU, else by the native LDL' (`sparse_ldl.py`).
+          The iterate and the products with K stay on the device (K as
+          sparse CSR tensors, `SparseK`);
   "dense_m" M is assembled sparse on the host as on the "ldl" route, then
           factored by a dense Cholesky on the solver's device: the
           route `choose` takes instead of "ldl" where the LDL' factor
@@ -140,7 +141,7 @@ DENSE_FACTORS = {"cuda": 0, "cpu": 0}
 # MIP's node LPs above its simplex gate land here)
 SOLVES = {"cuda": 0, "cpu": 0}
 # the Newton factors of the routes that assemble M on the host ("ldl" and
-# "dense_m"), by engine and device: the banded f32 Cholesky
+# "dense_m"), by engine and device: the banded f64 Cholesky
 # ("banded_<device>"), SuperLU and the native LDL' on the host ("superlu",
 # "ldl"), the dense Cholesky of the "dense_m" route ("dense_<device>")
 SPARSE_FACTORS = {"banded_cuda": 0, "banded_cpu": 0, "superlu": 0,
@@ -148,6 +149,8 @@ SPARSE_FACTORS = {"banded_cuda": 0, "banded_cpu": 0, "superlu": 0,
 # the banded factors that failed the precision gate, each handing the
 # rest of its solve to the host engines
 BANDED_HANDOFFS = {"gate": 0}
+# the factors of K K' + D of the "ldl" route's starting point, by engine
+START_FACTORS = {"banded_cuda": 0, "banded_cpu": 0, "ldl": 0}
 # IPM solves by the Newton route their iterations ran
 ROUTES = {"chol": 0, "cg": 0, "ldl": 0, "dense_m": 0}
 # dense K built on the device from its nonzeros (`scaled_dense_k`), by
@@ -168,6 +171,11 @@ _BANDED_REJECT: set = set()
 # solve: that depends on this solve's Theta, so `solve_lp_ipm_native`
 # clears it when it starts
 _BANDED_GATED: set = set()
+# the precision gate: the largest relative residual ||rhs - M x|| /
+# ||rhs|| of a banded factor's first Newton solve, after the host's
+# refinement, that keeps the factor (on EMD flows of 64^2 to 160^2 the
+# banded factor's and SuperLU's refined solves read 1e-15 to 1.3e-11)
+BANDED_RESIDUAL = 1e-10
 # from this many rows of M the "ldl" route tries the banded device
 # factor, then SuperLU; the native LDL' takes smaller ones
 LARGE_M_ROWS = 20000
@@ -413,91 +421,110 @@ def _dense_m_newton(problem: IpmProblem, theta_x, diag_extra, phase):
     return solve
 
 
+def _banded_structure(mmat: sp.spmatrix, key, device
+                      ) -> Optional[BandedCholesky]:
+    """The banded structure of M's pattern on `device`, cached by K's
+    pattern; None where the pattern was found not banded or its banded
+    factor failed the precision gate in this solve."""
+    if key in _BANDED_REJECT or key in _BANDED_GATED:
+        return None
+    banded = _BANDED_CACHE.get((key, device))
+    if banded is None:
+        banded = BandedCholesky.from_spd(mmat, device=device)
+        if banded is None:
+            _BANDED_REJECT.add(key)
+        else:
+            _BANDED_CACHE.clear()
+            _BANDED_CACHE[(key, device)] = banded
+    return banded
+
+
+def _host_factor(mmat: sp.csc_matrix, key, reg_d):
+    """The solve of a host factor of M: from `LARGE_M_ROWS` rows
+    SuperLU, else (fewer rows, an exactly singular M, or a near-singular
+    factor whose unit solve is not finite) the native LDL'."""
+    if mmat.shape[0] >= LARGE_M_ROWS:
+        try:
+            splu = spla.splu(mmat)
+            SPARSE_FACTORS["superlu"] += 1
+            # a successful but near-singular factor can return huge or
+            # NaN columns: probe with a unit solve
+            if np.all(np.isfinite(splu.solve(np.ones(mmat.shape[0])))):
+                return splu.solve
+        except RuntimeError:  # exactly singular
+            pass
+    h = _LDL_CACHE.get(key)
+    if h is None or not h.matches(mmat):
+        h = _ldl_of_gram(mmat)
+        _LDL_CACHE.clear()
+        _LDL_CACHE[key] = h
+    else:
+        h.factor(mmat, reg_floor=max(1e-12, reg_d))
+    SPARSE_FACTORS["ldl"] += 1
+    return h.solve
+
+
+def _refined(base, mmat: sp.spmatrix, rhs: np.ndarray,
+             rounds: int = 2) -> np.ndarray:
+    """`base`'s solve of M x = rhs and `rounds` rounds of f64 iterative
+    refinement against M on the host: late-IPM normal matrices are
+    extremely ill-conditioned, and the factors' pivot regularization
+    and shifts perturb them (HiPO: KrylovMethods/Refine.cpp)."""
+    x = base(rhs)
+    for _ in range(rounds):
+        x = x + base(rhs - mmat @ x)
+    return x
+
+
 def _sparse_newton(problem: IpmProblem, theta_x, diag_extra, reg_d,
                    phase):
     """The "ldl" route: M is built sparse on the host, with a CONSTANT
     pattern across iterations, from the scipy copy of K.  Engines, in
-    order: the banded f32 Cholesky on the problem's device (M of at least
-    `LARGE_M_ROWS` rows that is banded after RCM, while its refined probe
-    solve reaches f64-grade residuals); SuperLU (as many rows; BLAS3
-    panels, about 9x faster per factor than the native scalar LDL' on a
-    62.5k grid-flow normal matrix in the JAX package's measurement); the
-    native LDL' (the rest, and where SuperLU fails)."""
+    order: the banded f64 Cholesky on the problem's device (M of at least
+    `LARGE_M_ROWS` rows that is banded after RCM), kept while the first
+    Newton solve of each of its factors reaches `BANDED_RESIDUAL` after
+    the host's refinement; SuperLU (BLAS3 panels, about 9x faster per
+    factor than the native scalar LDL' on a 62.5k grid-flow normal matrix
+    in the JAX package's measurement); the native LDL' (the rest, and
+    where SuperLU fails).
+
+    The gate reads the Newton solve itself, not a probe: on a balanced
+    flow K' annihilates the scaled ones vector, where M's only
+    eigenvalue is reg_d, far below the factor's shift, so no solve along
+    it converges; the Newton right-hand sides are orthogonal to it."""
     device = theta_x.device
     key = _pattern_key(problem.a.host)
     mmat = _host_normal(problem, theta_x, diag_extra, phase)
-    h = None
     banded = None
-    splu = None
     with phase("factor"):
         if mmat.shape[0] >= LARGE_M_ROWS:
-            if key not in _BANDED_REJECT and key not in _BANDED_GATED:
-                banded = _BANDED_CACHE.get((key, device))
-                if banded is None:
-                    banded = BandedCholesky.from_spd(mmat, device=device)
-                    if banded is None:
-                        _BANDED_REJECT.add(key)
-                    else:
-                        _BANDED_CACHE.clear()
-                        _BANDED_CACHE[(key, device)] = banded
-            if banded is not None:
-                # no exception handler here, unlike the JAX package's:
-                # an error on the device propagates, it never turns
-                # into a silent hand-off to the host
-                banded.factor(mmat)
-                SPARSE_FACTORS["banded_" + device.type] += 1
-                # precision gate: the factor is f32, and an
-                # ill-conditioned normal matrix (late-IPM Theta swings;
-                # flow Laplacians) makes f32 refinement non-contracting.
-                # Keep the device route only while a probe solve reaches
-                # f64-grade residuals; past that the solve hands off to
-                # the host f64 engines for the remaining iterations of
-                # this solve (the structure stays cached for the next).
-                probe = np.ones(mmat.shape[0])
-                px = banded.solve_refined(probe, refine=3)
-                pres = np.linalg.norm(mmat @ px - probe) / \
-                    np.sqrt(mmat.shape[0])
-                if not (np.isfinite(pres) and pres < 1e-6):
-                    _BANDED_GATED.add(key)
-                    BANDED_HANDOFFS["gate"] += 1
-                    banded = None
-            if banded is None:
-                try:
-                    splu = spla.splu(mmat)
-                    SPARSE_FACTORS["superlu"] += 1
-                except RuntimeError:  # exactly singular
-                    splu = None
-                # a successful but near-singular factor can return
-                # huge or NaN columns: probe with a unit solve
-                if splu is not None and not np.all(np.isfinite(
-                        splu.solve(np.ones(mmat.shape[0])))):
-                    splu = None
-        if banded is None and splu is None:
-            h = _LDL_CACHE.get(key)
-            if h is None or not h.matches(mmat):
-                h = _ldl_of_gram(mmat)
-                _LDL_CACHE.clear()
-                _LDL_CACHE[key] = h
-            else:
-                h.factor(mmat, reg_floor=max(1e-12, reg_d))
-            SPARSE_FACTORS["ldl"] += 1
-
-    if banded is not None:
-        # the band-matvec refinement runs on the device: each Newton rhs
-        # costs one device solve; the host loop below tops it up in f64
-        def base(v):
-            return banded.solve_refined(v, refine=3)
-    else:
-        base = splu.solve if splu is not None else h.solve
+            banded = _banded_structure(mmat, key, device)
+        if banded is not None:
+            # no exception handler here, unlike the JAX package's: an
+            # error on the device propagates, it never turns into a
+            # silent hand-off to the host
+            banded.factor(mmat)
+            SPARSE_FACTORS["banded_" + device.type] += 1
+            base = banded.solve
+        else:
+            base = _host_factor(mmat, key, reg_d)
+    unchecked = banded is not None
 
     def solve_m(rhs_y):
-        # iterative refinement: late-IPM normal matrices are extremely
-        # ill-conditioned and the dynamic pivot regularization perturbs
-        # the factorization (HiPO: KrylovMethods/Refine.cpp)
+        nonlocal base, unchecked
         rhs = _host(rhs_y)
-        x = base(rhs)
-        for _ in range(1 if banded is not None else 2):
-            x = x + base(rhs - mmat @ x)
+        x = _refined(base, mmat, rhs)
+        if unchecked:
+            unchecked = False
+            # precision gate: a miss hands this solve, the rest of the
+            # iteration and the rest of this LP's solve to the host
+            # engines (the structure stays cached for the next solve)
+            if not np.linalg.norm(rhs - mmat @ x) <= \
+                    BANDED_RESIDUAL * np.linalg.norm(rhs):
+                _BANDED_GATED.add(key)
+                BANDED_HANDOFFS["gate"] += 1
+                base = _host_factor(mmat, key, reg_d)
+                x = _refined(base, mmat, rhs)
         if not np.all(np.isfinite(x)):
             # near-singular factor slipped through: regularize
             # explicitly and retry once
@@ -505,8 +532,7 @@ def _sparse_newton(problem: IpmProblem, theta_x, diag_extra, reg_d,
                 1.0 + float(np.abs(mmat.diagonal()).max()))
             hreg = spla.splu((mmat + sp.diags(
                 np.full(mmat.shape[0], reg))).tocsc())
-            x = hreg.solve(rhs)
-            x = x + hreg.solve(rhs - mmat @ x)
+            x = _refined(hreg.solve, mmat, rhs, rounds=1)
         return torch.as_tensor(x, device=device)
 
     return solve_m
@@ -799,13 +825,27 @@ def newton_route(a: sp.spmatrix, option: str = "choose") -> str:
 
 
 def starting_point_sparse(problem: IpmProblem) -> IpmState:
-    """The starting point with K K' factored by the native LDL' (host),
-    on the route's symbolic analysis of this pattern where
-    `_ldl_analysis` made one; the handle is cached so the first
-    iteration refactors it in place.  Raises LdlBlowup on a
-    fill-catastrophic pattern."""
+    """The starting point of the "ldl" route, with K K' + D factored on
+    the engine that the Newton factors will take: from `LARGE_M_ROWS`
+    rows, where the pattern is banded, the banded f64 Cholesky on the
+    problem's device (one host refinement round; its structure cached
+    for the first iteration), else the native LDL' (host), on the
+    route's symbolic analysis of this pattern where `_ldl_analysis` made
+    one; that handle is cached so the first iteration refactors it in
+    place.  Raises LdlBlowup on a fill-catastrophic pattern."""
     gram = _host_gram(problem).tocsc()
     gram.sum_duplicates()
+    key = _pattern_key(problem.a.host)
+    device = problem.b.device
+    banded = None
+    if gram.shape[0] >= LARGE_M_ROWS:
+        banded = _banded_structure(gram, key, device)
+    if banded is not None:
+        banded.factor(gram)
+        START_FACTORS["banded_" + device.type] += 1
+        return starting_point(
+            problem, solve_gram=lambda r: torch.as_tensor(_refined(
+                banded.solve, gram, _host(r), rounds=1), device=r.device))
     h = next((h for h in _ANALYSIS.values()
               if h is not None and h.matches(gram)), None)
     if h is None:
@@ -813,7 +853,8 @@ def starting_point_sparse(problem: IpmProblem) -> IpmState:
     else:
         h.factor(gram)
     _LDL_CACHE.clear()
-    _LDL_CACHE[_pattern_key(problem.a.host)] = h
+    _LDL_CACHE[key] = h
+    START_FACTORS["ldl"] += 1
     return starting_point(problem, solve_gram=lambda r: torch.as_tensor(
         h.solve(_host(r)), device=r.device))
 

@@ -132,12 +132,29 @@ def test_route_at_65536_rows_from_the_pattern():
     assert solver.newton_route(scattered, "ldl") == "ldl"
 
 
+def fresh_banded_caches(monkeypatch):
+    """The banded structures and the patterns found not banded, empty for
+    this test alone."""
+    monkeypatch.setattr(solver, "_BANDED_CACHE", {})
+    monkeypatch.setattr(solver, "_BANDED_REJECT", set())
+
+
+def no_band(monkeypatch):
+    """Every pattern found not banded, as an unstructured one is."""
+    monkeypatch.setattr(solver.BandedCholesky, "from_spd",
+                        staticmethod(lambda *args, **kwargs: None))
+
+
 def test_starting_point_factors_on_the_routes_analysis(monkeypatch):
     """Where the route's choice analysed M's pattern (from
-    `LARGE_M_ROWS` rows, lowered here below a 64^2 flow's 4,096), the
-    starting point's LDL' factors on that analysis: one symbolic
-    analysis a solve, and the solve optimal on the "ldl" route."""
+    `LARGE_M_ROWS` rows, lowered here below a 64^2 flow's 4,096) and the
+    pattern is not banded, the starting point's LDL' factors on that
+    analysis: one symbolic analysis a solve, and the solve optimal on
+    the "ldl" route."""
     monkeypatch.setattr(solver, "LARGE_M_ROWS", 4000)
+    fresh_banded_caches(monkeypatch)
+    no_band(monkeypatch)
+    start0 = dict(solver.START_FACTORS)
     made = []
 
     class Counted(solver.SparseLdl):
@@ -150,7 +167,56 @@ def test_starting_point_factors_on_the_routes_analysis(monkeypatch):
     h, x, y, obj = solve(lp, {"solver": "ipm", "run_crossover": "off"})
     assert solver.ROUTES["ldl"] == routes0 + 1
     assert made == [False]
+    assert {k: solver.START_FACTORS[k] - start0[k] for k in start0} == \
+        {"banded_cuda": 0, "banded_cpu": 0, "ldl": 1}
     assert abs(obj - scipy_optimum(lp)) <= 1e-6 * abs(obj)
+
+
+def ldl_run(lp):
+    """A solve on the "ldl" route: (the facade, x, y, objective, the
+    Newton factors by engine, the starting point's factors by engine,
+    the banded factor's hand-offs), the counters as the solve grew
+    them."""
+    factors0 = dict(solver.SPARSE_FACTORS)
+    start0 = dict(solver.START_FACTORS)
+    handoffs0 = solver.BANDED_HANDOFFS["gate"]
+    h, x, y, obj = solve(lp, {"solver": "ipm", "run_crossover": "off"})
+    assert h.getInfo().ipm_iteration_count > 0
+    return (h, x, y, obj,
+            {k: v - factors0[k] for k, v in solver.SPARSE_FACTORS.items()},
+            {k: v - start0[k] for k, v in solver.START_FACTORS.items()},
+            solver.BANDED_HANDOFFS["gate"] - handoffs0)
+
+
+def test_banded_factor_serves_every_newton_solve(monkeypatch):
+    """A 64^2 flow on the "ldl" route with `LARGE_M_ROWS` lowered below
+    its 4,096 rows: the starting point and every Newton factor on the
+    banded f64 factor (here on the CPU), none on SuperLU, no hand-off by
+    the Newton residual's gate; the iterations within one of the same
+    LP's on SuperLU (the pattern taken for not banded), and the answer
+    scipy's within 1e-6 with the certificate within 1e-7."""
+    monkeypatch.setattr(solver, "LARGE_M_ROWS", 4000)
+    fresh_banded_caches(monkeypatch)
+    lp = emd_l1.generate({"res": 64, "seed": 0})
+    h, x, y, obj, factors, start, handoffs = ldl_run(lp)
+    iterations = h.getInfo().ipm_iteration_count
+    assert factors == {**dict.fromkeys(factors, 0),
+                       "banded_cpu": iterations}
+    assert start == {"banded_cuda": 0, "banded_cpu": 1, "ldl": 0}
+    assert handoffs == 0
+    assert abs(obj - scipy_optimum(lp)) <= 1e-6 * abs(obj)
+    cert = flow_reference.certificate(lp, x, y, obj)
+    assert flow_reference.worst(cert) <= 1e-7, cert
+
+    fresh_banded_caches(monkeypatch)
+    no_band(monkeypatch)
+    h, _, _, host_obj, factors, start, handoffs = ldl_run(lp)
+    host_iterations = h.getInfo().ipm_iteration_count
+    assert factors == {**dict.fromkeys(factors, 0),
+                       "superlu": host_iterations}
+    assert start == {"banded_cuda": 0, "banded_cpu": 0, "ldl": 1}
+    assert abs(iterations - host_iterations) <= 1
+    assert abs(obj - host_obj) <= 1e-8 * abs(host_obj)
 
 
 def test_traced_solve_opens_the_phase_spans_and_counts_factors():

@@ -319,7 +319,8 @@ def test_whole_solve_matches_jax(jax_ref, case):
 def test_banded_caches_follow_the_pattern_and_the_solve(monkeypatch):
     """The banded structure is cached by K's pattern: an LP with the same
     pattern and new data reuses it, a new pattern builds its own.  A
-    precision-gate rejection lasts one solve: the next solve of the same
+    precision-gate rejection (the first Newton solve of a banded factor
+    missing `BANDED_RESIDUAL`) lasts one solve: the next solve of the same
     pattern tries the banded factor again.  A pattern found not banded
     stays so.  Every iteration is factored by the banded factor or by
     SuperLU, never by the native LDL'."""
@@ -372,10 +373,13 @@ def test_banded_caches_follow_the_pattern_and_the_solve(monkeypatch):
     assert factors >= 1 and new == 0
     assert solver._BANDED_CACHE == {(key, dev): structure}
 
-    # a gate failure hands this solve to SuperLU after one factor ...
+    # a gate failure hands this solve to SuperLU after one factor: a
+    # band solve 1% off leaves a residual of 1e-6 after the host's two
+    # refinement rounds, which the first Newton solve's gate reads ...
+    solve = banded_chol.BandedCholesky.solve
     with monkeypatch.context() as patch:
-        patch.setattr(banded_chol.BandedCholesky, "solve_refined",
-                      lambda self, v, refine=3: np.full_like(v, np.nan))
+        patch.setattr(banded_chol.BandedCholesky, "solve",
+                      lambda self, v: 1.01 * solve(self, v))
         assert run(grid_flow_lp(20)) == (1, 0)
     assert solver._BANDED_GATED == {key}
     # ... and the next solve of the pattern tries the device again
